@@ -1,0 +1,71 @@
+"""Architecture configs (the port's own copy of ``repro.configs``).
+
+Each ``<id>.py`` exposes ``CONFIG: ArchConfig`` with the published
+hyper-parameters, plus ``smoke_config()`` returning a reduced same-family
+config for CPU tests. ``get(name)`` / ``get_smoke(name)`` resolve either.
+The dataclass keeps every field of the reference, so the other configs
+copy over unchanged; of its helpers only those the serving path reads
+are kept.
+"""
+from __future__ import annotations
+
+import dataclasses
+import importlib
+from typing import Optional, Tuple
+
+
+@dataclasses.dataclass(frozen=True)
+class ArchConfig:
+    name: str
+    family: str                      # dense | moe | ssm | hybrid | vlm | audio
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab: int
+    n_experts: int = 0
+    top_k: int = 0
+    d_head: Optional[int] = None
+    ssm_state: int = 0
+    causal: bool = True
+    window: Optional[int] = None            # sliding-window attention
+    # Repeating block pattern, stacked as units of len(pattern) blocks.
+    # None => all-"attn" (or all-"moe" if n_experts>0).
+    pattern: Optional[Tuple[str, ...]] = None
+    rope_theta: float = 500_000.0
+    mrope: bool = False
+    enc_dec: bool = False
+    n_enc_layers: int = 0
+    frontend: Optional[str] = None
+    frontend_len: int = 0
+    tie_embeddings: bool = False
+    norm_eps: float = 1e-5
+    sub_quadratic: bool = False
+    capacity_factor: float = 1.25
+    moe_every: int = 1
+    mlp_kind: str = "swiglu"                # swiglu (3 matmuls) | gelu (2)
+
+    @property
+    def head_dim(self) -> int:
+        return self.d_head if self.d_head is not None else self.d_model // self.n_heads
+
+    def pattern_unit(self) -> Tuple[str, ...]:
+        """The repeating unit stacked along the model's unit axis."""
+        if self.pattern is None:
+            return ("moe",) if self.n_experts else ("attn",)
+        return self.pattern
+
+    @property
+    def n_units(self) -> int:
+        return self.n_layers // len(self.pattern_unit())
+
+
+def get(name: str) -> ArchConfig:
+    mod = importlib.import_module(f"repro_torch.configs.{name.replace('-', '_')}")
+    return mod.CONFIG
+
+
+def get_smoke(name: str) -> ArchConfig:
+    mod = importlib.import_module(f"repro_torch.configs.{name.replace('-', '_')}")
+    return mod.smoke_config()

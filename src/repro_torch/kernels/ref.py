@@ -1,0 +1,50 @@
+"""Plain PyTorch oracles for the attention kernels (full materialization,
+fp32 math): the port's copy of ``repro/kernels/ref.py::attention``.
+The decode oracle is the same function with ``causal=False`` and the
+per-batch valid lengths in ``kv_len``.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+
+
+def attention(q, k, v, *, causal: bool = True,
+              window: Optional[int] = None,
+              kv_len: Optional[torch.Tensor] = None,
+              q_offset: int = 0):
+    """Naive softmax attention with GQA.
+
+    q: (B, H, Sq, D); k, v: (B, KV, Skv, D) with H % KV == 0.
+    ``q_offset``: absolute position of q[0]. ``kv_len``: (B,) valid cache
+    lengths; None = all valid. Rows with no valid key give 0.
+    """
+    B, H, Sq, D = q.shape
+    KV, Skv = k.shape[1], k.shape[2]
+    g = H // KV
+    qf = q.float()
+    kf = k.float().repeat_interleave(g, dim=1)
+    vf = v.float().repeat_interleave(g, dim=1)
+    s = torch.einsum("bhqd,bhkd->bhqk", qf, kf) / math.sqrt(D)
+
+    dev = q.device
+    qpos = torch.arange(Sq, device=dev)[:, None] + q_offset      # (Sq, 1)
+    kpos = torch.arange(Skv, device=dev)[None, :]
+    mask = torch.ones((1, Sq, Skv), dtype=torch.bool, device=dev)
+    if causal:
+        mask = mask & (kpos <= qpos)
+    if window is not None:
+        mask = mask & (kpos > qpos - window)
+    if kv_len is not None:
+        mask = mask & (kpos < kv_len.reshape(-1, 1, 1).to(dev))
+    s = s.masked_fill(~mask[:, None], float("-inf"))
+    p = torch.softmax(s, dim=-1).nan_to_num(nan=0.0)             # empty rows
+    return torch.einsum("bhqk,bhkd->bhqd", p, vf).to(q.dtype)
+
+
+def decode_attention(q, k, v, lengths):
+    """Decode oracle: one query per batch row against a cache whose first
+    ``lengths[b]`` rows are valid. q: (B, H, 1, D); k, v: (B, KV, S, D)."""
+    return attention(q, k, v, causal=False, kv_len=lengths)

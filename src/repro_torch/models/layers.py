@@ -1,0 +1,147 @@
+"""Model layers of the dense attention block: RMSNorm, RoPE, GQA attention
+(train/prefill and self-attention decode) and the SwiGLU/GELU MLP.
+
+Each layer is a (spec_*, apply_*) pair as in ``repro/models/layers.py``.
+Compute runs in the activation dtype; weights are cast to it at each
+matmul (a no-op when the serving engine has cast them once already);
+attention math is f32 inside the kernels.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import ops
+from repro_torch.models.param import ParamSpec
+
+
+@dataclasses.dataclass(frozen=True)
+class Ctx:
+    """Per-call context threaded through blocks."""
+
+    cfg: Any
+    mode: str = "train"                        # train | prefill | decode
+    positions: Optional[torch.Tensor] = None   # (B,) decode positions
+    rope: Optional[Tuple] = None               # precomputed (cos, sin)
+    act_dtype: torch.dtype = torch.bfloat16
+
+
+# --------------------------------------------------------------------------
+# Norms.
+# --------------------------------------------------------------------------
+
+def spec_rmsnorm(d: int) -> Dict:
+    return {"scale": ParamSpec((d,), "ones")}
+
+
+def rmsnorm(p, x, eps: float = 1e-5):
+    xf = x.float()
+    var = xf.square().mean(dim=-1, keepdim=True)
+    y = xf * torch.rsqrt(var + eps)
+    return (y * p["scale"].float()).to(x.dtype)
+
+
+# --------------------------------------------------------------------------
+# RoPE.
+# --------------------------------------------------------------------------
+
+def rope_tables(positions, dim: int, theta: float):
+    """positions: (...,) int -> cos/sin (..., dim/2) fp32."""
+    half = dim // 2
+    exps = -torch.arange(0, half, dtype=torch.float32,
+                         device=positions.device) / half
+    freqs = torch.pow(torch.tensor(theta, dtype=torch.float32,
+                                   device=positions.device), exps)
+    ang = positions.float()[..., None] * freqs
+    return torch.cos(ang), torch.sin(ang)
+
+
+def apply_rope(x, cos, sin):
+    """x: (B, S, H, D); cos/sin: (S, D/2) or (B, D/2) (decode)."""
+    half = x.shape[-1] // 2
+    x1, x2 = x[..., :half].float(), x[..., half:].float()
+    if cos.shape[0] == x.shape[1]:                          # (S, half)
+        cos, sin = cos[None, :, None, :], sin[None, :, None, :]
+    else:                                                   # (B, half)
+        cos, sin = cos[:, None, None, :], sin[:, None, None, :]
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin],
+                     dim=-1).to(x.dtype)
+
+
+# --------------------------------------------------------------------------
+# GQA attention.
+# --------------------------------------------------------------------------
+
+def spec_attention(cfg) -> Dict:
+    d, H, KV, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    return {
+        "wq": ParamSpec((d, H * dh)),
+        "wk": ParamSpec((d, KV * dh)),
+        "wv": ParamSpec((d, KV * dh)),
+        "wo": ParamSpec((H * dh, d)),
+    }
+
+
+def apply_attention(p, x, ctx: Ctx, *, causal=True, window=None, cache=None):
+    """x: (B, S, d). cache: {'k','v'} (B, KV, S_max, dh) for decode.
+
+    Returns (y, new_cache). At decode the token's K/V are written into
+    ``cache`` in place (the reference returns an updated copy); the
+    returned cache is the same dict. At prefill the new cache holds the
+    sequence's roped K and V, (B, KV, S, dh).
+    """
+    cfg = ctx.cfg
+    H, KV, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    B, S, _ = x.shape
+    dt = x.dtype
+
+    q = (x @ p["wq"].to(dt)).reshape(B, S, H, dh)
+    k = (x @ p["wk"].to(dt)).reshape(B, S, KV, dh)
+    v = (x @ p["wv"].to(dt)).reshape(B, S, KV, dh)
+    if ctx.rope is not None:
+        cos, sin = ctx.rope
+        q = apply_rope(q, cos, sin)
+        k = apply_rope(k, cos, sin)
+
+    if ctx.mode == "decode":
+        pos = ctx.positions                                 # (B,)
+        s_max = cache["k"].shape[2]
+        widx = pos % s_max if window is not None else pos.clamp(max=s_max - 1)
+        bidx = torch.arange(B, device=x.device)
+        cache["k"][bidx, :, widx] = k[:, 0].to(cache["k"].dtype)
+        cache["v"][bidx, :, widx] = v[:, 0].to(cache["v"].dtype)
+        lengths = (pos + 1).clamp(max=s_max).to(torch.int32)
+        o = ops.decode_attention(q.transpose(1, 2), cache["k"], cache["v"],
+                                 lengths)
+        new_cache = cache
+    else:
+        kh, vh = k.transpose(1, 2), v.transpose(1, 2)       # (B, KV, S, dh)
+        o = ops.flash_attention(q.transpose(1, 2), kh, vh, causal=causal,
+                                window=window)
+        new_cache = {"k": kh, "v": vh} if ctx.mode == "prefill" else None
+    y = o.transpose(1, 2).reshape(B, S, H * dh)
+    return y @ p["wo"].to(dt), new_cache
+
+
+# --------------------------------------------------------------------------
+# Dense MLPs.
+# --------------------------------------------------------------------------
+
+def spec_mlp(cfg) -> Dict:
+    d, f = cfg.d_model, cfg.d_ff
+    width = 2 * f if cfg.mlp_kind == "swiglu" else f
+    return {"wi": ParamSpec((d, width)), "wo": ParamSpec((f, d))}
+
+
+def apply_mlp(p, x, ctx: Ctx):
+    dt = x.dtype
+    h = x @ p["wi"].to(dt)
+    if ctx.cfg.mlp_kind == "swiglu":
+        gate, up = h.chunk(2, dim=-1)
+        h = F.silu(gate.float()).to(dt) * up
+    else:                             # jax.nn.gelu defaults to the tanh form
+        h = F.gelu(h.float(), approximate="tanh").to(dt)
+    return h @ p["wo"].to(dt)

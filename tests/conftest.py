@@ -8,3 +8,8 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "src"))
 import jax  # noqa: E402
 
 jax.config.update("jax_default_matmul_precision", "float32")
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "requires_cuda: needs a CUDA card; skips without one")
