@@ -8,11 +8,20 @@ Run from the repository root on a machine with one NVIDIA H100:
 Phases, each fatal on failure:
   1. device report (name, power limit);
   2. build the CUDA kernels from ``src/repro_torch/csrc`` into ``build/``;
-  3. each kernel against its plain PyTorch version at SmolLM-360M's head
-     geometry, with its time, bound, plain time and the library yardstick;
+  3. each attention kernel against its plain PyTorch version at
+     SmolLM-360M's head geometry, and the SL boundary quantizer against
+     its plain version bit for bit at the training path's shapes, with
+     each kernel's time, bound, plain time and library yardstick;
   4. full-width SmolLM-360M split-model serving (cut at unit 16) through
-     both kernels: launch counts, split == unsplit greedy tokens, one
-     decode step's logits on the kernel path against the plain path.
+     both attention kernels: launch counts, split == unsplit greedy
+     tokens, one decode step's logits on the kernel path against the
+     plain path;
+  5. the paper's training loop: a 25-satellite Table-I ring training
+     full-width ResNet-18 (224 px, cut l2, batch 8, SGD) with the int8
+     boundary through the quantizer kernel (2 launches per SL step),
+     finite losses, the metered boundary payload, one step's loss on the
+     kernel path against the plain path, step times and a profile; then
+     one autoencoder pass at 224 px.
 The last two lines are the kernels' JSON record and the result JSON.
 Exits non-zero without a CUDA device.
 """
@@ -22,6 +31,7 @@ import json
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -32,8 +42,18 @@ import torch.nn.functional as F
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch import configs  # noqa: E402
-from repro_torch.kernels import _build, decode_attn, flash_attn, ops  # noqa: E402
+from repro_torch.core import sl_step  # noqa: E402
+from repro_torch.core.constellation import (ConstellationConfig,  # noqa: E402
+                                            ConstellationSim)
+from repro_torch.core.energy import PassBudget  # noqa: E402
+from repro_torch.core.splitting import RESNET18_PAPER_CUTS  # noqa: E402
+from repro_torch.core.train_state import SLTrainState  # noqa: E402
+from repro_torch.data.synthetic import ImageryShards  # noqa: E402
+from repro_torch.kernels import (_build, decode_attn, flash_attn, ops,  # noqa: E402
+                                 split_quant)
 from repro_torch.models import lm  # noqa: E402
+from repro_torch.train.optimizer import resolve_optimizer  # noqa: E402
+from repro_torch.utils.treeutil import tree_leaves  # noqa: E402
 from repro_torch.models.layers import Ctx  # noqa: E402
 from repro_torch.serve.engine import DecodeEngine, Request  # noqa: E402
 from repro_torch.serve_fleet.engine import SplitDecodeEngine  # noqa: E402
@@ -46,6 +66,22 @@ H, KV, D = 15, 5, 64                                 # SmolLM-360M heads
 PREFILL_S = (1, 77, 512, 1000)
 DECODE_B, DECODE_S = 8, 2048
 DECODE_LENS = [1, 2048, 100, 513, 1024, 37, 2000, 777]
+# The quantizer's shapes: ResNet-18's l2 boundary at 224 px and batch 8
+# (z and dz, 8*28*28 rows of 128 channels) in f32 and bf16, the
+# autoencoder's 224-px latent (8*7*7 rows of 3), and a d that is not a
+# multiple of the 16-byte vector. Every input has all-zero rows and .5 ties.
+QUANT_SHAPES = [(6272, 128, torch.float32), (6272, 128, torch.bfloat16),
+                (392, 3, torch.float32), (1000, 130, torch.float32)]
+# The training ring (phase 5): Table I's 25-satellite plane and its 400
+# items per pass, capped at 8 SL steps a pass so the phase stays short.
+RING_PASSES, RING_STEPS, RING_BATCH = 6, 8, 8
+L2_INT8_BITS_PER_ITEM = 28 * 28 * 128 * 8          # 802,816
+# Table II's l2 D_tx at f32, 3.211e6 bits (benchmarks/paper_tables.py:29),
+# exactly 28*28*128*32
+L2_F32_DTX_BITS = 3_211_264
+# One SL step's loss, kernel path vs plain-quantizer path: the kernel is
+# bit-exact, so the two differ only by cuDNN's run-to-run order of sums.
+STEP_LOSS_RTOL = 1e-5
 # One decode step's logits, kernel path vs plain path, both in bf16
 # activations: the attention outputs round to bf16 at different sums, and
 # the 1-ulp differences travel through 32 layers. Held to 3% of the
@@ -136,6 +172,38 @@ def check_decode(dtype, gen, flush):
         library_ms=time_ms(lambda: F.scaled_dot_product_attention(
             q, kx, vx, attn_mask=mask), flush=flush),
         bound_ms=b_ms, bound_by=b_by)
+
+
+def quant_input(rows, d, dtype, gen):
+    x = torch.randn((rows, d), generator=gen, device="cuda") * 7.3
+    x[::7] = 0.0                                   # all-zero rows
+    ties = [127.0, 0.5, 1.5, 2.5, -0.5, -2.5, 126.5, -3.5][:d]
+    x[1, :len(ties)] = torch.tensor(ties, device="cuda")   # scale 1: .5 ties
+    return x.to(dtype)
+
+
+def check_quant(rows, d, dtype, gen, flush):
+    """The quantizer kernel against its plain version, bit for bit."""
+    x = quant_input(rows, d, dtype, gen)
+    q, s = split_quant.quantize_rows(x)
+    qp, sp = split_quant.quantize_rows_plain(x)
+    torch.cuda.synchronize()
+    check(torch.equal(q, qp) and torch.equal(s, sp),
+          f"quantizer {rows}x{d} {dtype}: not bit-identical to plain")
+    err = max((q.int() - qp.int()).abs().max().item(),
+              (s - sp).abs().max().item())
+    n = rows * d
+    # read x once, write q (int8) and the per-row f32 scales once; about
+    # six f32 operations per element (abs, max, divide, round, 2 clips)
+    b_ms, b_by = bound(n * x.element_size() + n + 4 * rows, 6 * n,
+                       torch.float32)
+    return dict(
+        shape=f"quantize rows={rows} d={d} {str(dtype)[6:]}",
+        max_abs_err=err,
+        ms=time_ms(lambda: split_quant.quantize_rows(x), flush=flush),
+        plain_ms=time_ms(lambda: split_quant.quantize_rows_plain(x),
+                         flush=flush),
+        library_ms=None, bound_ms=b_ms, bound_by=b_by)
 
 
 def serve_full_width(label):
@@ -256,6 +324,209 @@ def profile_decode(engine, label, steps=5):
               f"{e.count // steps:4d}x  {e.key[:90]}")
 
 
+def train_full_width(label):
+    """Phase 5: the ResNet-18 ring at full width through the quantizer."""
+    adapter = sl_step.resnet18_adapter(cut=RESNET18_PAPER_CUTS["l2"],
+                                       img=224)
+    shards = ImageryShards(img=224, batch=RING_BATCH, n_shards=25)
+    budget = PassBudget()                      # Table I: 25 sats, 400 items
+    check(budget.plane.n_sats == 25 and budget.n_items == 400,
+          "Table-I plane")
+    with tempfile.TemporaryDirectory() as handoff_dir:
+        sim = ConstellationSim(
+            adapter, budget, shards.batch_at,
+            ConstellationConfig(
+                n_passes=RING_PASSES, optimizer="sgd",
+                quantize_boundary=True, fail_prob=0.0,
+                max_steps_per_pass=RING_STEPS, handoff_dir=handoff_dir),
+            device="cuda")
+        # warm-up on a throwaway state (cuDNN and cuBLAS handles, allocator)
+        warm = SLTrainState.create(*adapter.init(torch.Generator(
+            device="cuda").manual_seed(1)), sim.optimizer)
+        sim.sl_pass(warm, [shards.batch_at(0, 0)])
+        del warm
+
+        split_quant.quantize_rows.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        records = sim.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = split_quant.quantize_rows.launches
+        handoffs = sorted(Path(handoff_dir).iterdir())
+    steps = int(sim.state.step)
+    check(steps == sum(min(max(1, round(r.n_items / RING_BATCH)), RING_STEPS)
+                       for r in records if r.action in ("trained", "shed")),
+          "step counter == the passes' allocated steps")
+    check(launches == 2 * steps > 0,
+          f"quantizer launches {launches} != 2 x {steps} SL steps")
+    check(all(r.loss is not None and np.isfinite(r.loss) for r in records),
+          "every pass trained with a finite loss")
+    check(len(handoffs) == RING_PASSES, "one handoff checkpoint per pass")
+    batch = shards.batch_at(0, 0)
+    bits = sl_step.boundary_bits(adapter, batch, True) / RING_BATCH
+    check(bits == L2_INT8_BITS_PER_ITEM and 4 * bits == L2_F32_DTX_BITS
+          == adapter.costs().dtx_bits, f"boundary payload {bits} bits/item")
+
+    # one SL step from the trained state, kernel vs plain quantizer
+    step = sl_step.make_sl_step(adapter, quantize_boundary=True)
+    pa, pb = sim.state.params_a, sim.state.params_b
+    rk = step(pa, pb, batch)
+    kernel_quant = split_quant.quantize_rows
+    split_quant.quantize_rows = split_quant.quantize_rows_plain
+    try:
+        rp = step(pa, pb, batch)
+    finally:
+        split_quant.quantize_rows = kernel_quant
+    lk, lp = float(rk.loss), float(rp.loss)
+    check(abs(lk - lp) <= STEP_LOSS_RTOL * abs(lp), (lk, lp))
+    g_err = max((a - b).abs().max().item() for a, b in zip(
+        tree_leaves(rk.grads_a), tree_leaves(rp.grads_a)))
+
+    layout = boundary_layout(adapter, pa, pb, batch)
+
+    # SL step time on device-resident batches (no data generation)
+    t0 = time.perf_counter()
+    host_batches = [shards.batch_at(1, i) for i in range(RING_STEPS)]
+    gen_ms = (time.perf_counter() - t0) / RING_STEPS * 1e3
+    dev_batches = [{k: torch.as_tensor(v, device="cuda")
+                    for k, v in b.items()} for b in host_batches]
+    state, pass_ms = sim.state, []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = sim.sl_pass(state, dev_batches)
+        float(res.losses[-1])                       # ends in a device sync
+        pass_ms.append((time.perf_counter() - t0) * 1e3)
+        state = res.state
+    step_ms = statistics.median(pass_ms) / RING_STEPS
+    print(f"train resnet18 224px cut l2 batch {RING_BATCH}, 25-sat Table-I "
+          f"ring, {RING_PASSES} passes x {RING_STEPS} steps, int8 boundary, "
+          f"sgd [{label}]")
+    print(f"  actions {[r.action for r in records]}; losses "
+          f"{[round(r.loss, 4) for r in records]}")
+    print(f"  ring: {steps} SL steps in {wall:.3f} s = {steps / wall:.2f} "
+          f"steps/s incl. host data generation, planning and handoffs "
+          f"[{label}]")
+    print(f"  host data generation (NumPy ImageryShards.batch_at): "
+          f"{gen_ms:.2f} ms per batch of {RING_BATCH} [{label}]")
+    print(f"  SL step on device batches: {step_ms:.2f} ms "
+          f"({1e3 / step_ms:.1f} steps/s), median of 3 passes of "
+          f"{RING_STEPS} steps, host clock ending in a sync [{label}]")
+    print(f"  quantizer launches {launches} = 2 x {steps} steps; boundary "
+          f"{bits:.0f} bits/item int8 = 1/4 of {L2_F32_DTX_BITS}; step loss "
+          f"kernel {lk:.7f} vs plain {lp:.7f}, grads_a max abs diff "
+          f"{g_err:.3e}")
+    print(f"  {layout} [{label}]")
+    profile_sl_steps(sim.sl_pass, state, dev_batches[:4], label)
+    return launches
+
+
+def device_ms(fn, flush, n=20):
+    """Device time per call of ``fn`` by kernel, from torch.profiler (no
+    host gaps, unlike a pair of events around a Python call): a list of
+    (kernel name, launches per call, ms per call). ``flush`` is zeroed
+    before each call and its fill left out."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            flush.zero_()
+            fn()
+        torch.cuda.synchronize()
+    return [(e.key, e.count / n,
+             getattr(e, "self_device_time_total", 0) / n / 1e3)
+            for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and "FillFunctor" not in e.key and "Memset" not in e.key]
+
+
+def boundary_layout(adapter, pa, pb, batch):
+    """Whether z and dz reach the quantizer as contiguous NHWC rows, and
+    the device time of ``ops.quantize_boundary`` on them as the step
+    hands them over (a strided tensor is copied to rows first), by
+    kernel; and the quantizer kernel's own device time at the
+    autoencoder latent's 392 x 3, beside the event-pair floor of
+    ``time_ms``. Run after the main path's count is read."""
+    b = {k: torch.as_tensor(v, device="cuda") for k, v in batch.items()}
+    with torch.no_grad():
+        z = adapter.forward_a(pa, b)
+    z_tx = ops.ste_quantize(z).requires_grad_()
+    with torch.enable_grad():
+        dz, = torch.autograd.grad(adapter.loss_b(pb, z_tx, b), z_tx)
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    latent = quant_input(392, 3, torch.float32,
+                         torch.Generator(device="cuda").manual_seed(0))
+    parts = [f"empty event pair {time_ms(lambda: None, flush=flush):.4f} ms"]
+    for name, fn, t in (
+            ("z", lambda: ops.quantize_boundary(z), z),
+            ("dz", lambda: ops.quantize_boundary(dz), dz),
+            ("latent 392x3 rows", lambda: split_quant.quantize_rows(latent),
+             latent)):
+        kern = device_ms(fn, flush)
+        detail = ", ".join(f"{k[:48]} {c:g}x {ms:.4f} ms"
+                           for k, c, ms in kern)
+        parts.append(f"{name} {tuple(t.shape)} stride {t.stride()} "
+                     f"contiguous {t.is_contiguous()}: device "
+                     f"{sum(ms for *_, ms in kern):.4f} ms per call "
+                     f"({detail})")
+    return ("boundary layout on the card (torch.profiler, 20 calls, L2 "
+            "flushed): " + "; ".join(parts))
+
+
+def profile_sl_steps(sl_pass, state, batches, label):
+    """Kernel time by name over one pass of a few SL steps, against the
+    same pass's host-clock time."""
+    from torch.profiler import ProfilerActivity, profile
+    n = len(batches)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = sl_pass(state, batches)
+    float(res.losses[-1])
+    step = (time.perf_counter() - t0) / n * 1e3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        res = sl_pass(res.state, batches)
+        float(res.losses[-1])
+    kern = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    dev_us = lambda e: getattr(e, "self_device_time_total", 0)
+    busy = sum(dev_us(e) for e in kern) / n / 1e3
+    if busy == 0:
+        print(f"profile: SL step {step:.2f} ms; device time not measured "
+              "(the profiler saw no kernels)")
+        return
+    print(f"profile of {n} SL steps [{label}]: step {step:.2f} ms (host "
+          f"clock, unprofiled), kernels {busy:.3f} ms/step, device idle "
+          f"{max(0.0, 1 - busy / step):.1%}")
+    for e in sorted(kern, key=dev_us, reverse=True)[:10]:
+        print(f"  {dev_us(e) / n / 1e3:8.4f} ms/step  "
+              f"{e.count / n:6.1f}x  {e.key[:90]}")
+
+
+def autoencoder_pass_224(label):
+    """One autoencoder pass at 224 px: the quantizer at d = 3."""
+    adapter = sl_step.autoencoder_adapter(cut=5, img=224)
+    shards = ImageryShards(img=224, batch=RING_BATCH, n_shards=1)
+    opt = resolve_optimizer("sgd", lr=1e-2)
+    state = SLTrainState.create(*adapter.init(torch.Generator(
+        device="cuda").manual_seed(0)), opt)
+    sl_pass = sl_step.make_sl_pass(adapter, quantize_boundary=True,
+                                   optimizer=opt)
+    batches = [shards.batch_at(0, i) for i in range(4)]
+    n0 = split_quant.quantize_rows.launches
+    res = sl_pass(state, batches)
+    losses = res.losses.tolist()
+    check(split_quant.quantize_rows.launches - n0 == 2 * len(batches),
+          "2 quantizer launches per autoencoder step")
+    check(all(np.isfinite(losses)), f"autoencoder losses {losses}")
+    check(res.dtx_bits_down == RING_BATCH * 7 * 7 * 3 * 8,
+          "autoencoder latent payload")
+    print(f"train autoencoder 224px cut 5, one pass of {len(batches)} steps "
+          f"[{label}]: losses {[round(x, 5) for x in losses]}, boundary "
+          f"{res.dtx_bits_down} bits per step (8x7x7x3 int8)")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -280,37 +551,48 @@ def main() -> int:
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
-    rows = {"flash_attn_fwd": [], "decode_attn": []}
+    rows = {"flash_attn_fwd": [], "decode_attn": [], "split_quant": []}
     for dtype in (torch.bfloat16, torch.float32):
         for S in PREFILL_S:
             rows["flash_attn_fwd"].append(check_prefill(dtype, S, gen, flush))
         rows["decode_attn"].append(check_decode(dtype, gen, flush))
+    for r, d, dtype in QUANT_SHAPES:
+        rows["split_quant"].append(check_quant(r, d, dtype, gen, flush))
     print(f"kernels vs plain on {smi} (ms, median of 20, L2 flushed):")
     for name, rs in rows.items():
         for r in rs:
+            lib = ("none" if r["library_ms"] is None
+                   else f"{r['library_ms']:.4f}")
             print(f"  {name} {r['shape']}: kernel {r['ms']:.4f} plain "
-                  f"{r['plain_ms']:.4f} sdpa {r['library_ms']:.4f} bound "
+                  f"{r['plain_ms']:.4f} library {lib} bound "
                   f"{r['bound_ms']:.4f} ({r['bound_by']}) max_abs_err "
                   f"{r['max_abs_err']:.3e}")
     del flush
 
     launches = serve_full_width(smi)
+    launches["split_quant"] = train_full_width(smi)
+    autoencoder_pass_224(smi)
 
-    # the kernels at the main path's largest shapes, bf16
+    # the kernels at the main paths' largest shapes (attention in bf16,
+    # the quantizer at ResNet-18's f32 l2 boundary)
     pick = {"flash_attn_fwd": rows["flash_attn_fwd"][2],      # S=512
-            "decode_attn": rows["decode_attn"][0]}
+            "decode_attn": rows["decode_attn"][0],
+            "split_quant": rows["split_quant"][0]}            # 6272 x 128
     meta = {"flash_attn_fwd": ("src/repro_torch/csrc/flash_attn_fwd.cu",
                                "src/repro/kernels/flash_attn.py:126"),
             "decode_attn": ("src/repro_torch/csrc/decode_attn.cu",
-                            "src/repro/kernels/decode_attn.py:88")}
+                            "src/repro/kernels/decode_attn.py:88"),
+            "split_quant": ("src/repro_torch/csrc/split_quant.cu",
+                            "src/repro/kernels/split_quant.py:35")}
     kernels = [dict(name=n, route="cuda", source=meta[n][0],
                     replaces=meta[n][1], launches=launches[n],
                     max_abs_err=max(r["max_abs_err"] for r in rows[n]
-                                    if "bfloat16" in r["shape"]),
+                                    if n == "split_quant"
+                                    or "bfloat16" in r["shape"]),
                     ms=pick[n]["ms"], plain_ms=pick[n]["plain_ms"],
                     bound_ms=pick[n]["bound_ms"], bound_by=pick[n]["bound_by"],
                     library_ms=pick[n]["library_ms"])
-               for n in ("flash_attn_fwd", "decode_attn")]
+               for n in ("flash_attn_fwd", "decode_attn", "split_quant")]
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,2 +1,3 @@
-"""Attention kernels: hand-written CUDA for Hopper, their plain PyTorch
-versions, and the ops that dispatch between them by device."""
+"""The hand-written CUDA kernels for Hopper (attention, SL boundary
+quantizer), their plain PyTorch versions, and the ops that dispatch
+between them by device."""

@@ -29,6 +29,7 @@ P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 ENTRY = {
     "flash_attn_fwd": [P, P, P, P, I, I, I, I, I, I, I, I, F, I, P],
     "decode_attn": [P, P, P, P, P, I, I, I, I, I, F, I, P],
+    "split_quant": [P, P, P, I, I, I, I, P],
 }
 
 _lock = threading.Lock()

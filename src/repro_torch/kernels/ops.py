@@ -1,4 +1,4 @@
-"""Public attention ops, dispatched by the device of their input: a CUDA
+"""Public kernel ops, dispatched by the device of their input: a CUDA
 tensor launches the hand-written kernel (or the wrapper raises), a CPU
 tensor takes the kernel's plain PyTorch version. There is no fallback
 from one to the other.
@@ -7,8 +7,12 @@ from __future__ import annotations
 
 from typing import Optional
 
+import torch
+
 from repro_torch.kernels import decode_attn as _decode
 from repro_torch.kernels import flash_attn as _flash
+from repro_torch.kernels import ref
+from repro_torch.kernels import split_quant as _quant
 
 
 def flash_attention(q, k, v, *, causal: bool = True,
@@ -25,3 +29,38 @@ def decode_attention(q, k, v, lengths):
     if q.device.type == "cpu":
         return _decode.decode_attention_plain(q, k, v, lengths)
     return _decode.decode_attention(q, k, v, lengths)
+
+
+def quantize_boundary(x):
+    """Per-row int8 quantization of a tensor flattened to (-1, last dim):
+    returns q int8 of ``x.shape`` and scale f32 of ``x.shape[:-1] + (1,)``.
+    An NHWC boundary gives one row per pixel, as in the reference."""
+    shape = x.shape
+    x2 = x.reshape(-1, shape[-1])
+    if x.device.type == "cpu":
+        q, s = _quant.quantize_rows_plain(x2)
+    else:
+        q, s = _quant.quantize_rows(x2)
+    return q.reshape(shape), s.reshape(shape[:-1] + (1,))
+
+
+def dequantize_boundary(q, s, dtype=torch.float32):
+    return ref.dequantize_rows(q, s, dtype)
+
+
+class _STEQuantize(torch.autograd.Function):
+    """Quantize-dequantize forward, straight-through backward."""
+
+    @staticmethod
+    def forward(ctx, x):
+        q, s = quantize_boundary(x)
+        return dequantize_boundary(q, s, x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g
+
+
+def ste_quantize(x):
+    """Quantize-dequantize with straight-through gradients (training)."""
+    return _STEQuantize.apply(x)

@@ -1,7 +1,7 @@
-"""Plain PyTorch oracles for the attention kernels (full materialization,
-fp32 math): the port's copy of ``repro/kernels/ref.py::attention``.
-The decode oracle is the same function with ``causal=False`` and the
-per-batch valid lengths in ``kv_len``.
+"""Plain PyTorch oracles (full materialization, fp32 math): the port's
+copy of ``repro/kernels/ref.py`` for the attention kernels and the SL
+boundary quantizer. The decode oracle is the same attention function
+with ``causal=False`` and the per-batch valid lengths in ``kv_len``.
 """
 from __future__ import annotations
 
@@ -48,3 +48,19 @@ def decode_attention(q, k, v, lengths):
     """Decode oracle: one query per batch row against a cache whose first
     ``lengths[b]`` rows are valid. q: (B, H, 1, D); k, v: (B, KV, S, D)."""
     return attention(q, k, v, causal=False, kv_len=lengths)
+
+
+def quantize_rows(x):
+    """Per-row symmetric int8: returns (q int8, scale fp32 per row).
+    Both divisions are IEEE divisions, as in the reference: the divisor
+    127 is a tensor because PyTorch's CUDA division by a Python number
+    multiplies by its reciprocal, which rounds differently."""
+    xf = x.float()
+    absmax = xf.abs().amax(dim=-1, keepdim=True)
+    scale = torch.clamp(absmax, min=1e-30) / torch.full_like(absmax, 127.0)
+    q = torch.clamp(torch.round(xf / scale), -127, 127).to(torch.int8)
+    return q, scale
+
+
+def dequantize_rows(q, scale, dtype=torch.float32):
+    return (q.float() * scale).to(dtype)

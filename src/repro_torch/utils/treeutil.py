@@ -1,0 +1,41 @@
+"""Helpers over the port's parameter trees: nested dicts of tensors,
+walked in sorted-key order (the order ``jax.tree`` flattens a dict in,
+so names and leaf order match the reference's)."""
+from __future__ import annotations
+
+from typing import List, Tuple
+
+import torch
+
+
+def tree_flatten_with_names(tree, prefix: str = "") -> List[Tuple[str, torch.Tensor]]:
+    """(dotted_name, leaf) pairs of a nested dict, sorted by key."""
+    if isinstance(tree, dict):
+        out = []
+        for k in sorted(tree):
+            out += tree_flatten_with_names(tree[k], f"{prefix}.{k}" if prefix
+                                           else str(k))
+        return out
+    return [(prefix, tree)]
+
+
+def tree_leaves(tree) -> List[torch.Tensor]:
+    return [leaf for _, leaf in tree_flatten_with_names(tree)]
+
+
+def tree_bytes(tree) -> int:
+    """Bytes held by the tree's tensors (the ISL handoff payload)."""
+    return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
+
+
+def tree_unflatten(like, leaves):
+    """A tree shaped like ``like`` holding ``leaves`` (in the order of
+    :func:`tree_leaves`)."""
+    it = iter(leaves)
+
+    def build(node):
+        if isinstance(node, dict):
+            return {k: build(node[k]) for k in sorted(node)}
+        return next(it)
+
+    return build(like)

@@ -1,6 +1,7 @@
 """The port stands alone: every ``repro_torch`` module and the imports of
-``chip_smoke.py`` load with JAX and the JAX package blocked, no source
-imports either, and no entry point runs on the CPU unless asked to."""
+``chip_smoke.py`` load with JAX, the JAX package and msgpack blocked (the
+machine with the card has neither), no source imports them, and no entry
+point runs on the CPU unless asked to."""
 import os
 import re
 import subprocess
@@ -23,16 +24,20 @@ def _modules():
 
 def test_modules_and_chip_smoke_import_without_jax():
     mods = _modules()
-    assert "repro_torch.kernels.flash_attn" in mods
+    assert {"repro_torch.kernels.flash_attn", "repro_torch.kernels.split_quant",
+            "repro_torch.core.constellation", "repro_torch.ckpt.checkpoint",
+            "repro_torch.launch.constellation"} <= set(mods)
     code = ("import sys\n"
             "sys.modules['jax'] = None\n"
             "sys.modules['repro'] = None\n"
+            "sys.modules['msgpack'] = None\n"
             "import importlib\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
             f"sys.path.insert(0, {str(ROOT)!r})\n"
             "import chip_smoke\n"
-            "assert not any(k == 'jax' or k.startswith(('jax.', 'repro.'))\n"
+            "assert not any(k in ('jax', 'msgpack')\n"
+            "               or k.startswith(('jax.', 'repro.'))\n"
             "               for k, v in sys.modules.items() if v is not None)\n"
             "print('ok')\n")
     env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
@@ -45,13 +50,14 @@ def test_modules_and_chip_smoke_import_without_jax():
 @pytest.mark.parametrize("path", sorted(
     [str(p.relative_to(ROOT)) for p in PKG.rglob("*.py")] + ["chip_smoke.py"]))
 def test_source_imports_neither_jax_nor_repro(path):
-    bad = re.compile(r"^\s*(import|from)\s+(jax\b|repro(?!_torch)\b)", re.M)
+    bad = re.compile(r"^\s*(import|from)\s+(jax\b|msgpack\b|repro(?!_torch)\b)",
+                     re.M)
     assert not bad.search((ROOT / path).read_text()), path
 
 
 def test_entry_points_refuse_cpu_unless_asked(monkeypatch):
     from repro_torch import configs
-    from repro_torch.launch import serve
+    from repro_torch.launch import constellation, serve
     from repro_torch.models import lm
     from repro_torch.serve.engine import DecodeEngine
     from repro_torch.serve_fleet.engine import SplitDecodeEngine
@@ -68,6 +74,11 @@ def test_entry_points_refuse_cpu_unless_asked(monkeypatch):
     out = serve.main(["--requests", "1", "--new-tokens", "2", "--cut", "1",
                       "--device", "cpu"])
     assert list(out) == [0] and len(out[0]) == 2
+    with pytest.raises(RuntimeError, match="cuda"):
+        constellation.main(["--img", "32", "--passes", "1"])
+    summary = constellation.main(["--img", "32", "--passes", "2",
+                                  "--device", "cpu"])
+    assert summary["passes"] == 2 and summary["trained"] >= 1
 
 
 def test_chip_smoke_fails_without_a_card():

@@ -5,7 +5,7 @@ tests/test_torch_kernels_cuda.py``. Every test skips without a card."""
 import pytest
 import torch
 
-from repro_torch.kernels import decode_attn, flash_attn
+from repro_torch.kernels import decode_attn, flash_attn, ops, split_quant
 
 
 def require_cuda():
@@ -57,3 +57,51 @@ def test_decode_kernel_vs_plain(B, H, KV, S, D, lens, dtype):
     want = decode_attn.decode_attention_plain(q, k, v, lengths)
     tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+def _quant_input(rows, d, dtype, dev, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((rows, d), generator=g, device=dev) * 7.3
+    x[::7] = 0.0                                   # all-zero rows
+    if d >= 8:                                     # exact .5 ties
+        x[1, :8] = torch.tensor([127.0, 0.5, 1.5, 2.5, -0.5, -2.5, 126.5,
+                                 -3.5], device=dev)
+    return x.to(dtype)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows,d", [(6272, 128), (392, 3), (1000, 130),
+                                    (37, 64), (9, 8), (1, 1)])
+def test_quant_kernel_bit_exact_vs_plain(rows, d, dtype):
+    dev = require_cuda()
+    x = _quant_input(rows, d, dtype, dev)
+    q, s = split_quant.quantize_rows(x)
+    qp, sp = split_quant.quantize_rows_plain(x)
+    torch.cuda.synchronize()
+    assert q.dtype == torch.int8 and s.shape == (rows, 1)
+    assert torch.equal(q, qp) and torch.equal(s, sp)
+
+
+@pytest.mark.requires_cuda
+def test_quant_kernel_unaligned_view_takes_the_scalar_path():
+    dev = require_cuda()
+    base = _quant_input(65, 128, torch.float32, dev).reshape(-1)
+    x = base[1:1 + 64 * 128].view(64, 128)         # 4-byte, not 16, aligned
+    q, s = split_quant.quantize_rows(x)
+    qp, sp = split_quant.quantize_rows_plain(x)
+    assert torch.equal(q, qp) and torch.equal(s, sp)
+
+
+@pytest.mark.requires_cuda
+def test_ste_quantize_on_the_card_counts_launches():
+    dev = require_cuda()
+    x = _quant_input(8 * 28 * 28, 128, torch.float32, dev).reshape(
+        8, 28, 28, 128).requires_grad_()
+    n0 = split_quant.quantize_rows.launches
+    y = ops.ste_quantize(x)
+    (y * 3.0).sum().backward()
+    assert split_quant.quantize_rows.launches == n0 + 1
+    q, s = split_quant.quantize_rows_plain(x.detach().reshape(-1, 128))
+    assert torch.equal(y.detach().reshape(-1, 128), q.float() * s)
+    assert torch.equal(x.grad, torch.full_like(x, 3.0))
