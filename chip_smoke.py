@@ -9,9 +9,11 @@ Phases, each fatal on failure:
   1. device report (name, power limit);
   2. build the CUDA kernels from ``src/repro_torch/csrc`` into ``build/``;
   3. each attention kernel against its plain PyTorch version at
-     SmolLM-360M's head geometry, and the SL boundary quantizer against
-     its plain version bit for bit at the training path's shapes, with
-     each kernel's time, bound, plain time and library yardstick;
+     SmolLM-360M's head geometry and at Zamba2-1.2B's (MHA, 32 heads),
+     the Mamba-2 chunked scan against its plain version at Zamba2's
+     full-width heads, and the SL boundary quantizer against its plain
+     version bit for bit at the training path's shapes, with each
+     kernel's time, bound, plain time and library yardstick;
   4. full-width SmolLM-360M split-model serving (cut at unit 16) through
      both attention kernels: launch counts, split == unsplit greedy
      tokens, one decode step's logits on the kernel path against the
@@ -21,7 +23,12 @@ Phases, each fatal on failure:
      boundary through the quantizer kernel (2 launches per SL step),
      finite losses, the metered boundary payload, one step's loss on the
      kernel path against the plain path, step times and a profile; then
-     one autoencoder pass at 224 px.
+     one autoencoder pass at 224 px;
+  6. full-width Zamba2-1.2B split-model serving (cut at unit 3) through
+     the scan kernel (prefill) and both attention kernels (the shared
+     block): launch counts, split == unsplit greedy tokens, one prefill's
+     and one decode step's logits on the kernel path against the plain
+     path, times and profiles.
 The last two lines are the kernels' JSON record and the result JSON.
 Exits non-zero without a CUDA device.
 """
@@ -49,9 +56,10 @@ from repro_torch.core.energy import PassBudget  # noqa: E402
 from repro_torch.core.splitting import RESNET18_PAPER_CUTS  # noqa: E402
 from repro_torch.core.train_state import SLTrainState  # noqa: E402
 from repro_torch.data.synthetic import ImageryShards  # noqa: E402
-from repro_torch.kernels import (_build, decode_attn, flash_attn, ops,  # noqa: E402
-                                 split_quant)
+from repro_torch.kernels import (_build, decode_attn, flash_attn,  # noqa: E402
+                                 mamba_scan, ops, split_quant)
 from repro_torch.models import lm  # noqa: E402
+from repro_torch.models.param import map_tree  # noqa: E402
 from repro_torch.train.optimizer import resolve_optimizer  # noqa: E402
 from repro_torch.utils.treeutil import tree_leaves  # noqa: E402
 from repro_torch.models.layers import Ctx  # noqa: E402
@@ -63,6 +71,7 @@ HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 TOL = {torch.bfloat16: 2e-2, torch.float32: 2e-5}    # as the CPU tests
 H, KV, D = 15, 5, 64                                 # SmolLM-360M heads
+MHA_H = 32                                           # Zamba2-1.2B: H = KV
 PREFILL_S = (1, 77, 512, 1000)
 DECODE_B, DECODE_S = 8, 2048
 DECODE_LENS = [1, 2048, 100, 513, 1024, 37, 2000, 777]
@@ -72,6 +81,14 @@ DECODE_LENS = [1, 2048, 100, 513, 1024, 37, 2000, 777]
 # multiple of the 16-byte vector. Every input has all-zero rows and .5 ties.
 QUANT_SHAPES = [(6272, 128, torch.float32), (6272, 128, torch.bfloat16),
                 (392, 3, torch.float32), (1000, 130, torch.float32)]
+# The Mamba-2 scan at Zamba2-1.2B's full-width heads (H=64, P=N=64,
+# chunk 128): (B, S), S = 1 and ragged last chunks included.
+MAMBA_H, MAMBA_P, MAMBA_N, MAMBA_CHUNK = 64, 64, 64, 128
+MAMBA_SHAPES = [(1, 1), (1, 100), (1, 512), (1, 1000), (2, 257)]
+# f32: the reference's scan tolerance (MAMBA_SWEEP, tests/test_kernels.py);
+# bf16: y rounds to bf16 after f32 sums taken in another order than the
+# plain version's (1 ulp = 2**-8 relative), as the attention kernels.
+MAMBA_TOL = {torch.bfloat16: 2e-2, torch.float32: 5e-4}
 # The training ring (phase 5): Table I's 25-satellite plane and its 400
 # items per pass, capped at 8 SL steps a pass so the phase stays short.
 RING_PASSES, RING_STEPS, RING_BATCH = 6, 8, 8
@@ -87,6 +104,13 @@ STEP_LOSS_RTOL = 1e-5
 # the 1-ulp differences travel through 32 layers. Held to 3% of the
 # largest logit (PERF.md, "Findings").
 LOGITS_TOL_OF_MAX = 0.03
+# A whole prefill's logits, kernel path vs plain path, in f32 activations:
+# bf16 ones are not comparable, since Zamba2's 1-ulp differences per call
+# grow along the sequence and through 36 blocks to ~25% of the largest
+# logit (PERF.md, Findings), so the bf16 prefill is held call by call
+# instead. In f32 the two paths agreed to 9e-5 of the largest logit on
+# the card (PERF.md, Findings); held to 1e-3 of it.
+PREFILL_F32_TOL_OF_MAX = 1e-3
 
 
 def check(ok, what):
@@ -118,7 +142,7 @@ def bound(nbytes, nops, dtype):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def check_prefill(dtype, S, gen, flush):
+def check_prefill(dtype, S, gen, flush, H=H, KV=KV):
     dev = torch.device("cuda")
     q, k, v = [torch.randn(s, generator=gen, device=dev).to(dtype)
                for s in ((1, H, S, D), (1, KV, S, D), (1, KV, S, D))]
@@ -133,7 +157,8 @@ def check_prefill(dtype, S, gen, flush):
     b_ms, b_by = bound((2 * q.numel() + 2 * k.numel()) * q.element_size(),
                        4 * D * H * pairs, dtype)
     return dict(
-        shape=f"prefill B=1 S={S} {str(dtype)[6:]}", max_abs_err=err,
+        shape=f"prefill B=1 H={H} KV={KV} S={S} {str(dtype)[6:]}",
+        max_abs_err=err,
         ms=time_ms(lambda: flash_attn.flash_attention_fwd(q, k, v),
                    flush=flush),
         plain_ms=time_ms(lambda: flash_attn.flash_attention_plain(q, k, v),
@@ -143,7 +168,7 @@ def check_prefill(dtype, S, gen, flush):
         bound_ms=b_ms, bound_by=b_by)
 
 
-def check_decode(dtype, gen, flush):
+def check_decode(dtype, gen, flush, H=H, KV=KV):
     dev = torch.device("cuda")
     q, k, v = [torch.randn(s, generator=gen, device=dev).to(dtype)
                for s in ((DECODE_B, H, 1, D), (DECODE_B, KV, DECODE_S, D),
@@ -163,8 +188,8 @@ def check_decode(dtype, gen, flush):
                        + 2 * rows * KV * D * k.element_size(),
                        4 * D * H * rows, dtype)
     return dict(
-        shape=f"decode B={DECODE_B} s_max={DECODE_S} lengths={DECODE_LENS} "
-              f"{str(dtype)[6:]}", max_abs_err=err,
+        shape=f"decode B={DECODE_B} H={H} KV={KV} s_max={DECODE_S} "
+              f"lengths={DECODE_LENS} {str(dtype)[6:]}", max_abs_err=err,
         ms=time_ms(lambda: decode_attn.decode_attention(q, k, v, lengths),
                    flush=flush),
         plain_ms=time_ms(lambda: decode_attn.decode_attention_plain(
@@ -206,13 +231,143 @@ def check_quant(rows, d, dtype, gen, flush):
         library_ms=None, bound_ms=b_ms, bound_by=b_by)
 
 
-def serve_full_width(label):
-    cfg = configs.get("smollm_360m")
-    check((cfg.n_layers, cfg.d_model, cfg.vocab) == (32, 960, 49152),
-          "full-width SmolLM-360M config")
+def mamba_work(B, S, H, P, N, chunk, elt):
+    """Bytes and operations of one SSD chunked scan: x, b, c, dt and
+    a_log read once, y and the f32 final state written once; per head,
+    the L x L products c.b^T and M x (2 S L (N + P)) and the inter-chunk
+    and state-update contractions (4 S P N), without causal skipping."""
+    L = min(chunk, S)
+    nbytes = (2 * B * S * H * P * elt + 2 * B * S * N * elt + 4 * B * S * H
+              + 4 * H + 4 * B * H * P * N)
+    nops = B * H * (2 * S * L * (N + P) + 4 * S * P * N)
+    return nbytes, nops
+
+
+def check_mamba(dtype, B, S, gen, flush):
+    """The SSD scan kernel against its plain version at Zamba2's heads."""
+    dev = torch.device("cuda")
+    Hm, P, N = MAMBA_H, MAMBA_P, MAMBA_N
+    rnd = lambda *shape: torch.randn(shape, generator=gen, device=dev)
+    x = rnd(B, S, Hm, P).to(dtype)
+    dt = F.softplus(rnd(B, S, Hm))
+    a_log = rnd(Hm) * 0.5
+    b, c = rnd(B, S, N).to(dtype), rnd(B, S, N).to(dtype)
+    args = (x, dt, a_log, b, c)
+    y, h = mamba_scan.mamba_chunk_scan(*args, chunk=MAMBA_CHUNK)
+    yp, hp = mamba_scan.mamba_chunk_scan_plain(*args, chunk=MAMBA_CHUNK)
+    torch.cuda.synchronize()
+    tol = MAMBA_TOL[dtype]
+    torch.testing.assert_close(y.float(), yp.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(h, hp, atol=tol, rtol=tol)
+    err = max((y.float() - yp.float()).abs().max().item(),
+              (h - hp).abs().max().item())
+    nbytes, nops = mamba_work(B, S, Hm, P, N, MAMBA_CHUNK, x.element_size())
+    b_ms, b_by = bound(nbytes, nops, dtype)
+    return dict(
+        shape=f"scan B={B} S={S} H={Hm} P={P} N={N} chunk {MAMBA_CHUNK} "
+              f"{str(dtype)[6:]}", max_abs_err=err,
+        ms=time_ms(lambda: mamba_scan.mamba_chunk_scan(
+            *args, chunk=MAMBA_CHUNK), flush=flush),
+        plain_ms=time_ms(lambda: mamba_scan.mamba_chunk_scan_plain(
+            *args, chunk=MAMBA_CHUNK), flush=flush),
+        library_ms=None, bound_ms=b_ms, bound_by=b_by,
+        bytes=nbytes, ops=nops)
+
+
+# The served models (phases 4 and 6): published widths, seeded random
+# weights, the cut, and each kernel's launches per prompt (bulk prefill)
+# and per decode step: SmolLM-360M's 32 attention layers; Zamba2-1.2B's 6
+# units of 5 Mamba-2 blocks and one pass through the shared block.
+SERVED = {
+    "smollm_360m": dict(dims=(32, 960, 49152), cut=16,
+                        per_prompt={"flash_attn_fwd": 32},
+                        per_step={"decode_attn": 32}),
+    "zamba2_1_2b": dict(dims=(36, 2048, 32000), cut=3,
+                        per_prompt={"mamba_scan": 30, "flash_attn_fwd": 6},
+                        per_step={"decode_attn": 6}),
+}
+WRAPPERS = {"flash_attn_fwd": flash_attn.flash_attention_fwd,
+            "decode_attn": decode_attn.decode_attention,
+            "mamba_scan": mamba_scan.mamba_chunk_scan,
+            "split_quant": split_quant.quantize_rows}
+# What ``ops`` dispatches to on the card, and the plain version that
+# replaces it for the comparisons (their launches are not counted).
+PLAIN_OPS = {
+    "flash_attention": flash_attn.flash_attention_plain,
+    "decode_attention": decode_attn.decode_attention_plain,
+    "mamba_scan": mamba_scan.mamba_chunk_scan_plain,
+}
+
+
+def with_ops(make, fn):
+    """``fn()`` with each kernel op of the serving path (the names in
+    PLAIN_OPS) replaced by ``make(name, kernel op, plain version)``."""
+    kernel_ops = {name: getattr(ops, name) for name in PLAIN_OPS}
+    for name, plain in PLAIN_OPS.items():
+        setattr(ops, name, make(name, kernel_ops[name], plain))
+    try:
+        return fn()
+    finally:
+        for name, op in kernel_ops.items():
+            setattr(ops, name, op)
+
+
+def with_plain_ops(fn):
+    """``fn()`` with every kernel op swapped for its plain version."""
+    return with_ops(lambda name, kernel_op, plain: plain, fn)
+
+
+def with_checked_ops(fn):
+    """``fn()`` with every kernel op of the serving path run twice on the
+    same inputs, as the kernel and as its plain version, each output held
+    to the plain one at phase 3's tolerance of its dtype. Returns
+    (fn's result, {op: (calls, largest error, largest |plain value|)})."""
+    seen = {}
+
+    def checked(name, kernel_op, plain):
+        def op(*a, **kw):
+            got, want = kernel_op(*a, **kw), plain(*a, **kw)
+            got, want = ((got,), (want,)) if torch.is_tensor(got) else (
+                got, want)
+            for g, w in zip(got, want):
+                tol = TOL[g.dtype] if name != "mamba_scan" else MAMBA_TOL[
+                    g.dtype]
+                torch.testing.assert_close(g.float(), w.float(), atol=tol,
+                                           rtol=tol)
+                n, err, top = seen.get(name, (0, 0.0, 0.0))
+                seen[name] = (n, max(err, (g.float() - w.float()).abs()
+                                     .max().item()),
+                              max(top, w.float().abs().max().item()))
+            n, err, top = seen[name]
+            seen[name] = (n + 1, err, top)
+            return got[0] if len(got) == 1 else got
+        return op
+
+    return with_ops(checked, fn), seen
+
+
+def logits_close(lk, lp, what, tol_of_max=LOGITS_TOL_OF_MAX):
+    """Kernel-path logits against plain-path logits: finite f32, within
+    ``tol_of_max`` of the largest logit. Returns (err, max, argmax
+    agreement)."""
+    check(lk.dtype == torch.float32 and bool(torch.isfinite(lk).all()),
+          f"finite f32 {what} logits")
+    err = (lk - lp).abs().max().item()
+    top = lp.abs().max().item()
+    check(err <= tol_of_max * top, (what, err, top))
+    agree = (lk.argmax(-1) == lp.argmax(-1)).float().mean().item()
+    return err, top, agree
+
+
+def serve_full_width(arch, label):
+    spec = SERVED[arch]
+    cfg = configs.get(arch)
+    check((cfg.n_layers, cfg.d_model, cfg.vocab) == spec["dims"],
+          f"full-width {arch} config")
+    cut = spec["cut"]
     params = lm.init(cfg, torch.Generator(device="cuda").manual_seed(0))
     kw = dict(n_slots=8, s_max=2048, act_dtype=torch.bfloat16, device="cuda")
-    split = SplitDecodeEngine(cfg, params, cut_units=16, **kw)
+    split = SplitDecodeEngine(cfg, params, cut_units=cut, **kw)
     rng = np.random.default_rng(0)
     plens = rng.integers(32, 513, 16)
     prompts = [rng.integers(0, cfg.vocab, n).astype(np.int32) for n in plens]
@@ -220,7 +375,7 @@ def serve_full_width(label):
                     for i, p in enumerate(prompts)]
 
     # warm-up on a throwaway engine (cuBLAS handles, allocator)
-    SplitDecodeEngine(cfg, params, cut_units=16, **kw).submit_and_run(
+    SplitDecodeEngine(cfg, params, cut_units=cut, **kw).submit_and_run(
         reqs()[:2])
 
     prefill_ms, step_ms = [], []
@@ -235,16 +390,20 @@ def serve_full_width(label):
 
     split._prefill = timed(split._prefill, prefill_ms)
     split._step = timed(split._step, step_ms)
-    flash_attn.flash_attention_fwd.launches = 0
-    decode_attn.decode_attention.launches = 0
+    counted = {**spec["per_prompt"], **spec["per_step"]}
+    for name in counted:
+        WRAPPERS[name].launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     out = split.submit_and_run(reqs())
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"flash_attn_fwd": flash_attn.flash_attention_fwd.launches,
-                "decode_attn": decode_attn.decode_attention.launches}
-    check(all(n > 0 for n in launches.values()), launches)
+    launches = {name: WRAPPERS[name].launches for name in counted}
+    want = {**{n: k * len(prefill_ms) for n, k in spec["per_prompt"].items()},
+            **{n: k * len(step_ms) for n, k in spec["per_step"].items()}}
+    check(len(prefill_ms) == 16 and launches == want,
+          f"launches {launches} != {want} ({len(prefill_ms)} prompts, "
+          f"{len(step_ms)} decode steps)")
 
     check(sorted(out) == list(range(16)), "every request served")
     check(all(len(t) == 32 and all(0 <= x < cfg.vocab for x in t)
@@ -256,29 +415,44 @@ def serve_full_width(label):
     tokens = torch.tensor(split.last_tok[:, None], device="cuda")
     positions = torch.tensor(np.minimum(plens[:8] + 3, 2047), device="cuda")
     ctx = Ctx(cfg=cfg, mode="decode", act_dtype=torch.bfloat16)
-    cache0 = {k: {s: {n: t.clone() for n, t in kv.items()}
-                  for s, kv in blk.items()} for k, blk in split.cache.items()}
+    cache0 = map_tree(torch.clone, split.cache)
     with torch.no_grad():
         lk, _, _ = lm.decode_step_split(cfg, split.params_sat,
                                         split.params_gnd, split.cache,
                                         tokens, positions, ctx=ctx)
-        kernel_decode = ops.decode_attention
-        ops.decode_attention = decode_attn.decode_attention_plain
-        try:
-            lp, _, _ = lm.decode_step_split(cfg, split.params_sat,
-                                            split.params_gnd, cache0,
-                                            tokens, positions, ctx=ctx)
-        finally:
-            ops.decode_attention = kernel_decode
-    check(lk.dtype == torch.float32 and bool(torch.isfinite(lk).all()),
-          "finite f32 logits")
-    logit_err = (lk - lp).abs().max().item()
-    logit_max = lp.abs().max().item()
-    check(logit_err <= LOGITS_TOL_OF_MAX * logit_max, (logit_err, logit_max))
-    same_argmax = int((lk.argmax(-1) == lp.argmax(-1)).sum())
+        lp, _, _ = with_plain_ops(lambda: lm.decode_step_split(
+            cfg, split.params_sat, split.params_gnd, cache0, tokens,
+            positions, ctx=ctx))
+    d_err, d_max, d_agree = logits_close(lk, lp, "decode")
+
+    # one prefill (the longest prompt): in bf16 every kernel call against
+    # its plain version on the same inputs, and the logits of both paths
+    # (printed); in f32 activations the logits of both paths, held
+    longest = torch.tensor(prompts[int(np.argmax(plens))][None, :],
+                           device="cuda")
+    pctx = Ctx(cfg=cfg, mode="prefill", act_dtype=torch.bfloat16)
+    pctx32 = Ctx(cfg=cfg, mode="prefill", act_dtype=torch.float32)
+    with torch.no_grad():
+        (pk, _, _), calls = with_checked_ops(lambda: lm.forward(
+            cfg, split.params, longest, ctx=pctx))
+        pp, _, _ = with_plain_ops(lambda: lm.forward(
+            cfg, split.params, longest, ctx=pctx))
+        pk32, _, _ = lm.forward(cfg, params, longest, ctx=pctx32)
+        pp32, _, _ = with_plain_ops(lambda: lm.forward(
+            cfg, params, longest, ctx=pctx32))
+    want_calls = {"flash_attention": spec["per_prompt"]["flash_attn_fwd"]}
+    if "mamba_scan" in spec["per_prompt"]:
+        want_calls["mamba_scan"] = spec["per_prompt"]["mamba_scan"]
+    check({n: c[0] for n, c in calls.items()} == want_calls,
+          f"checked prefill calls {calls}")
+    check(bool(torch.isfinite(pk).all()), "finite bf16 prefill logits")
+    b_err = (pk - pp).abs().max().item()
+    b_agree = (pk.argmax(-1) == pp.argmax(-1)).float().mean().item()
+    p_err, p_max, p_agree = logits_close(pk32, pp32, "f32 prefill",
+                                         PREFILL_F32_TOL_OF_MAX)
 
     n_tok = sum(len(t) for t in out.values())
-    print(f"serve smollm_360m split@16, 8 slots, s_max 2048, 16 requests "
+    print(f"serve {arch} split@{cut}, 8 slots, s_max 2048, 16 requests "
           f"(prompts {plens.min()}-{plens.max()}), 32 new tokens each [{label}]")
     print(f"  {n_tok} tokens in {wall:.3f} s: {n_tok / wall:.1f} tok/s "
           f"[{label}]")
@@ -286,42 +460,61 @@ def serve_full_width(label):
           f"{len(prefill_ms)} prompts [{label}]")
     print(f"  decode step median {statistics.median(step_ms):.2f} ms over "
           f"{len(step_ms)} steps [{label}]")
-    print(f"  launches on this run: {launches}; split tokens == unsplit; "
-          f"logits kernel vs plain max abs err {logit_err:.3e} of max "
-          f"|logit| {logit_max:.3e} (tol {LOGITS_TOL_OF_MAX:.0%}), argmax "
-          f"equal in {same_argmax}/8 rows")
+    print(f"  launches on this run: {launches} = per prompt "
+          f"{spec['per_prompt']} and per decode step {spec['per_step']}; "
+          f"split tokens == unsplit")
+    print(f"  logits kernel vs plain (tol {LOGITS_TOL_OF_MAX:.0%} of max "
+          f"|logit|): decode max abs err {d_err:.3e} of {d_max:.3e}, argmax "
+          f"equal in {d_agree:.0%} of 8 rows")
+    print(f"  prefill of {longest.shape[1]} tokens, kernel vs plain: bf16 "
+          f"calls (err, max |plain|) " + ", ".join(
+              f"{n} {c}x ({e:.3e}, {t:.3e})" for n, (c, e, t) in
+              calls.items()) + f"; bf16 logits max abs err {b_err:.3e} "
+          f"(not held: differences grow along the sequence), argmax equal "
+          f"in {b_agree:.1%}; f32 logits max abs err {p_err:.3e} of "
+          f"{p_max:.3e} (tol {PREFILL_F32_TOL_OF_MAX:g} of max), argmax "
+          f"equal in {p_agree:.1%} of positions")
     profile_decode(split, label)
+    profile_calls(lambda: split._prefill(prompts[int(np.argmax(plens))]), 3,
+                  f"prefills of {longest.shape[1]} tokens", label)
     return launches
+
+
+def profile_calls(fn, n, what, label):
+    """Kernel time by name over ``n`` calls of ``fn`` (each returning host
+    values, so synced), against the same calls' host-clock time."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    call = (time.perf_counter() - t0) / n * 1e3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+    kern = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    dev_us = lambda e: getattr(e, "self_device_time_total", 0)
+    busy = sum(dev_us(e) for e in kern) / n / 1e3
+    if busy == 0:
+        print(f"profile: {what} {call:.2f} ms each; device time not measured "
+              "(the profiler saw no kernels)")
+        return
+    print(f"profile of {n} {what} [{label}]: {call:.2f} ms each (host clock, "
+          f"unprofiled), kernels {busy:.3f} ms each, device idle "
+          f"{max(0.0, 1 - busy / call):.1%}")
+    for e in sorted(kern, key=dev_us, reverse=True)[:8]:
+        print(f"  {dev_us(e) / n / 1e3:8.4f} ms each  "
+              f"{e.count / n:6.1f}x  {e.key[:90]}")
 
 
 def profile_decode(engine, label, steps=5):
     """Kernel time by name over a few decode steps of the served engine
     (torch.profiler), against the same steps' host-clock time."""
-    from torch.profiler import ProfilerActivity, profile
     toks = engine.last_tok.reshape(-1, 1).astype(np.int32)
     pos = np.minimum(engine.positions, engine.s_max - 2)
-    engine._step(toks, pos)
-    t0 = time.perf_counter()
-    for _ in range(steps):
-        engine._step(toks, pos)
-    step = (time.perf_counter() - t0) / steps * 1e3
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(steps):
-            engine._step(toks, pos)
-    kern = [e for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
-    dev_us = lambda e: getattr(e, "self_device_time_total", 0)
-    busy = sum(dev_us(e) for e in kern) / steps / 1e3
-    if busy == 0:
-        print(f"profile: decode step {step:.2f} ms; device time not measured "
-              "(the profiler saw no kernels)")
-        return
-    print(f"profile of {steps} decode steps [{label}]: step {step:.2f} ms "
-          f"(host clock, unprofiled), kernels {busy:.3f} ms/step, device "
-          f"idle {1 - busy / step:.1%}")
-    for e in sorted(kern, key=dev_us, reverse=True)[:8]:
-        print(f"  {dev_us(e) / steps / 1e3:8.4f} ms/step  "
-              f"{e.count // steps:4d}x  {e.key[:90]}")
+    profile_calls(lambda: engine._step(toks, pos), steps, "decode steps",
+                  label)
 
 
 def train_full_width(label):
@@ -551,13 +744,22 @@ def main() -> int:
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
-    rows = {"flash_attn_fwd": [], "decode_attn": [], "split_quant": []}
+    rows = {"flash_attn_fwd": [], "decode_attn": [], "split_quant": [],
+            "mamba_scan": []}
     for dtype in (torch.bfloat16, torch.float32):
         for S in PREFILL_S:
             rows["flash_attn_fwd"].append(check_prefill(dtype, S, gen, flush))
         rows["decode_attn"].append(check_decode(dtype, gen, flush))
+    for dtype in (torch.bfloat16, torch.float32):     # Zamba2's MHA heads
+        rows["flash_attn_fwd"].append(check_prefill(
+            dtype, 512, gen, flush, H=MHA_H, KV=MHA_H))
+        rows["decode_attn"].append(check_decode(dtype, gen, flush, H=MHA_H,
+                                                KV=MHA_H))
     for r, d, dtype in QUANT_SHAPES:
         rows["split_quant"].append(check_quant(r, d, dtype, gen, flush))
+    for dtype in (torch.bfloat16, torch.float32):
+        for B, S in MAMBA_SHAPES:
+            rows["mamba_scan"].append(check_mamba(dtype, B, S, gen, flush))
     print(f"kernels vs plain on {smi} (ms, median of 20, L2 flushed):")
     for name, rs in rows.items():
         for r in rs:
@@ -567,23 +769,40 @@ def main() -> int:
                   f"{r['plain_ms']:.4f} library {lib} bound "
                   f"{r['bound_ms']:.4f} ({r['bound_by']}) max_abs_err "
                   f"{r['max_abs_err']:.3e}")
+    scan = rows["mamba_scan"][2]                      # S=512 bf16
+    print(f"  mamba_scan bound at S=512 bf16: {scan['bytes'] / 1e6:.2f} MB "
+          f"-> {scan['bytes'] / HBM_BYTES_PER_S * 1e3:.4f} ms at 3.35 TB/s; "
+          f"{scan['ops'] / 1e9:.3f} GFLOP -> "
+          f"{scan['ops'] / PEAK_OPS[torch.bfloat16] * 1e3:.4f} ms at the "
+          f"bf16 tensor peak, {scan['ops'] / PEAK_OPS[torch.float32] * 1e3:.4f}"
+          f" ms at the f32 peak; the script uses the inputs' type (bf16): "
+          f"bound {scan['bound_ms']:.4f} ms by {scan['bound_by']}")
     del flush
 
-    launches = serve_full_width(smi)
-    launches["split_quant"] = train_full_width(smi)
+    paths = {"smollm_360m": serve_full_width("smollm_360m", smi)}
+    torch.cuda.empty_cache()
+    paths["resnet18_ring"] = {"split_quant": train_full_width(smi)}
     autoencoder_pass_224(smi)
+    torch.cuda.empty_cache()
+    paths["zamba2_1_2b"] = serve_full_width("zamba2_1_2b", smi)
+    print(f"launches on the main paths: {paths}")
+    launches = {n: sum(p.get(n, 0) for p in paths.values()) for n in WRAPPERS}
 
-    # the kernels at the main paths' largest shapes (attention in bf16,
-    # the quantizer at ResNet-18's f32 l2 boundary)
+    # the kernels at the main paths' largest shapes (attention in bf16 at
+    # SmolLM's heads, the quantizer at ResNet-18's f32 l2 boundary, the
+    # scan in bf16 at S=512)
     pick = {"flash_attn_fwd": rows["flash_attn_fwd"][2],      # S=512
             "decode_attn": rows["decode_attn"][0],
-            "split_quant": rows["split_quant"][0]}            # 6272 x 128
+            "split_quant": rows["split_quant"][0],            # 6272 x 128
+            "mamba_scan": scan}
     meta = {"flash_attn_fwd": ("src/repro_torch/csrc/flash_attn_fwd.cu",
                                "src/repro/kernels/flash_attn.py:126"),
             "decode_attn": ("src/repro_torch/csrc/decode_attn.cu",
                             "src/repro/kernels/decode_attn.py:88"),
             "split_quant": ("src/repro_torch/csrc/split_quant.cu",
-                            "src/repro/kernels/split_quant.py:35")}
+                            "src/repro/kernels/split_quant.py:35"),
+            "mamba_scan": ("src/repro_torch/csrc/mamba_scan.cu",
+                           "src/repro/kernels/mamba_scan.py:101")}
     kernels = [dict(name=n, route="cuda", source=meta[n][0],
                     replaces=meta[n][1], launches=launches[n],
                     max_abs_err=max(r["max_abs_err"] for r in rows[n]
@@ -592,7 +811,8 @@ def main() -> int:
                     ms=pick[n]["ms"], plain_ms=pick[n]["plain_ms"],
                     bound_ms=pick[n]["bound_ms"], bound_by=pick[n]["bound_by"],
                     library_ms=pick[n]["library_ms"])
-               for n in ("flash_attn_fwd", "decode_attn", "split_quant")]
+               for n in ("flash_attn_fwd", "decode_attn", "split_quant",
+                         "mamba_scan")]
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -6,12 +6,17 @@ config for CPU tests. ``get(name)`` / ``get_smoke(name)`` resolve either.
 The dataclass keeps every field of the reference, so the other configs
 copy over unchanged; of its helpers only those the serving path reads
 are kept.
+
+Block kinds the port serves: ``attn`` (GQA attention + MLP), ``mamba2``
+(Mamba-2 SSD block, no separate MLP) and ``shared_attn`` (Zamba2's one
+attention + MLP block whose weights every occurrence shares).
 """
 from __future__ import annotations
 
 import dataclasses
 import importlib
-from typing import Optional, Tuple
+import math
+from typing import List, Optional, Tuple
 
 
 @dataclasses.dataclass(frozen=True)
@@ -49,6 +54,18 @@ class ArchConfig:
     @property
     def head_dim(self) -> int:
         return self.d_head if self.d_head is not None else self.d_model // self.n_heads
+
+    @property
+    def d_inner(self) -> int:
+        """Inner width of mamba2/mlstm blocks (2x expansion)."""
+        return 2 * self.d_model
+
+    def block_kinds(self) -> List[str]:
+        if self.pattern is None:
+            kind = "moe" if self.n_experts else "attn"
+            return [kind] * self.n_layers
+        reps = math.ceil(self.n_layers / len(self.pattern))
+        return (list(self.pattern) * reps)[: self.n_layers]
 
     def pattern_unit(self) -> Tuple[str, ...]:
         """The repeating unit stacked along the model's unit axis."""

@@ -30,6 +30,7 @@ ENTRY = {
     "flash_attn_fwd": [P, P, P, P, I, I, I, I, I, I, I, I, F, I, P],
     "decode_attn": [P, P, P, P, P, I, I, I, I, I, F, I, P],
     "split_quant": [P, P, P, I, I, I, I, P],
+    "mamba_scan": [P, P, P, P, P, P, P, I, I, I, I, I, I, I, P],
 }
 
 _lock = threading.Lock()

@@ -1,0 +1,108 @@
+"""Mamba-2 SSD chunked scan: the hand-written Hopper kernel
+``csrc/mamba_scan.cu`` and its plain PyTorch version.
+
+Replaces the Pallas TPU kernel ``repro/kernels/mamba_scan.py``
+(``mamba_chunk_scan``, ``pallas_call`` at line 101). Per (batch, head)
+the sequence is cut into chunks; within a chunk the scan is an L x L
+decay-masked product plus the inter-chunk term of the carried P x N f32
+state, which is then updated. On the H100 its bytes bound it (at the
+bf16 tensor-core rate the operations take less time); as written it
+runs f32 FMAs fed from shared memory, far from that bound. The design
+is in the source's header, its times in PERF.md.
+
+:func:`mamba_chunk_scan` launches the kernel on CUDA tensors only and
+counts its launches in ``mamba_chunk_scan.launches``; the dispatch by
+device is in :mod:`repro_torch.kernels.ops`.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import _build
+
+DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+L_MAX = 128               # longest chunk the kernel's thread mapping covers
+
+
+def mamba_chunk_scan_plain(x, dt, a_log, b, c, *, chunk: int = 128):
+    """The plain version, chunk by chunk in f32: the reference's jnp path
+    (``repro/kernels/ops.py::_mamba_chunked_jnp``). Returns (y in x's
+    dtype (B, S, H, P), h_final f32 (B, H, P, N))."""
+    B, S, H, P = x.shape
+    N = b.shape[-1]
+    h = torch.zeros((B, H, P, N), dtype=torch.float32, device=x.device)
+    if S == 0:
+        return torch.empty_like(x), h
+    L = min(chunk, S)
+    n = -(-S // L)
+    pad = n * L - S
+    xf = F.pad(x.float(), (0, 0, 0, 0, 0, pad)).reshape(B, n, L, H, P)
+    dtf = F.pad(dt.float(), (0, 0, 0, pad)).reshape(B, n, L, H)
+    bf = F.pad(b.float(), (0, 0, 0, pad)).reshape(B, n, L, N)
+    cf = F.pad(c.float(), (0, 0, 0, pad)).reshape(B, n, L, N)
+    a = -torch.exp(a_log.float())                                   # (H,)
+    tri = torch.ones((L, L), dtype=torch.bool, device=x.device).tril()
+    ys = []
+    for i in range(n):
+        xc, dtc, bc, cc = xf[:, i], dtf[:, i], bf[:, i], cf[:, i]
+        cum = torch.cumsum(dtc * a, dim=1)                          # (B,L,H)
+        decay = torch.exp(cum[:, :, None, :] - cum[:, None, :, :])  # (B,L,L,H)
+        scores = torch.einsum("btn,bsn->bts", cc, bc)
+        # select, not multiply: decay is inf above the diagonal
+        m = torch.where(tri[None, :, :, None],
+                        decay * scores[..., None] * dtc[:, None], 0.0)
+        y = torch.einsum("btsh,bshp->bthp", m, xc)
+        y = y + torch.exp(cum)[..., None] * torch.einsum("btn,bhpn->bthp",
+                                                         cc, h)
+        total = cum[:, -1:, :]                                      # (B,1,H)
+        w = torch.exp(total - cum) * dtc                            # (B,L,H)
+        h = (torch.exp(total)[:, 0, :, None, None] * h
+             + torch.einsum("bshp,bsn,bsh->bhpn", xc, bc, w))
+        ys.append(y)
+    y = torch.cat(ys, dim=1)[:, :S]
+    return y.to(x.dtype), h
+
+
+def mamba_chunk_scan(x, dt, a_log, b, c, *, chunk: int = 128):
+    """x: (B, S, H, P) and b, c: (B, S, N) in f32 or bf16 (one dtype);
+    dt: (B, S, H) and a_log: (H,) in f32; all on one CUDA device.
+    ``min(chunk, S)`` must be at most 128, and N small enough for the
+    chunk's tiles to fit shared memory (N = 64 at chunk 128; a launch
+    that does not fit raises). Returns (y (B, S, H, P) in x's
+    dtype, h_final (B, H, P, N) f32)."""
+    B, S, H, P = x.shape
+    N = b.shape[-1]
+    dev = x.device
+    if not (x.is_cuda and all(t.device == dev for t in (dt, a_log, b, c))):
+        raise ValueError("mamba_chunk_scan needs x, dt, a_log, b, c on one "
+                         "CUDA device")
+    if (x.dtype not in DTYPES or b.dtype != x.dtype or c.dtype != x.dtype
+            or dt.dtype != torch.float32 or a_log.dtype != torch.float32):
+        raise ValueError(f"unsupported dtypes x {x.dtype}, b {b.dtype}, "
+                         f"c {c.dtype}, dt {dt.dtype}, a_log {a_log.dtype}")
+    if (dt.shape != (B, S, H) or a_log.shape != (H,) or b.shape != (B, S, N)
+            or c.shape != b.shape or min(B, H, P, N) < 1):
+        raise ValueError(f"unsupported shapes x {tuple(x.shape)}, dt "
+                         f"{tuple(dt.shape)}, a_log {tuple(a_log.shape)}, "
+                         f"b {tuple(b.shape)}, c {tuple(c.shape)}")
+    L = min(chunk, S)
+    if S and not 1 <= L <= L_MAX:
+        raise ValueError(f"chunk length {L} not in [1, {L_MAX}]")
+    x, dt, a_log, b, c = (t.contiguous() for t in (x, dt, a_log, b, c))
+    y = torch.empty_like(x)
+    h = torch.empty((B, H, P, N), dtype=torch.float32, device=dev)
+    if S == 0:
+        return y, h.zero_()
+    fn = _build.load("mamba_scan").mamba_scan
+    with torch.cuda.device(dev):
+        err = fn(x.data_ptr(), dt.data_ptr(), a_log.data_ptr(), b.data_ptr(),
+                 c.data_ptr(), y.data_ptr(), h.data_ptr(), B, S, H, P, N, L,
+                 DTYPES[x.dtype], torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"mamba_scan launch failed: CUDA error {err}")
+    mamba_chunk_scan.launches += 1
+    return y, h
+
+
+mamba_chunk_scan.launches = 0

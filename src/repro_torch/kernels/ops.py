@@ -11,6 +11,7 @@ import torch
 
 from repro_torch.kernels import decode_attn as _decode
 from repro_torch.kernels import flash_attn as _flash
+from repro_torch.kernels import mamba_scan as _mamba
 from repro_torch.kernels import ref
 from repro_torch.kernels import split_quant as _quant
 
@@ -29,6 +30,27 @@ def decode_attention(q, k, v, lengths):
     if q.device.type == "cpu":
         return _decode.decode_attention_plain(q, k, v, lengths)
     return _decode.decode_attention(q, k, v, lengths)
+
+
+def mamba_scan(x, dt, a_log, b, c, *, chunk: int = 128):
+    """Mamba-2 SSD chunked scan. x: (B,S,H,P); dt: (B,S,H); a_log: (H,);
+    b, c: (B,S,N) -> (y (B,S,H,P), h_final (B,H,P,N) f32)."""
+    if x.device.type == "cpu":
+        return _mamba.mamba_chunk_scan_plain(x, dt, a_log, b, c, chunk=chunk)
+    return _mamba.mamba_chunk_scan(x, dt, a_log, b, c, chunk=chunk)
+
+
+def mamba_decode_step(h, x_t, dt_t, a_log, b_t, c_t):
+    """Single-token SSD state update (plain PyTorch on every device, as
+    the reference's is jnp). h: (B,H,P,N) f32; x_t: (B,H,P); dt_t: (B,H);
+    b_t, c_t: (B,N). Returns (y_t (B,H,P) in x_t's dtype, h_new)."""
+    a = -torch.exp(a_log.float())
+    decay = torch.exp(a[None] * dt_t.float())                     # (B,H)
+    upd = (dt_t[..., None, None] * x_t[..., None].float()
+           * b_t[:, None, None, :].float())
+    h = h * decay[..., None, None] + upd
+    y = torch.einsum("bhpn,bn->bhp", h, c_t.float())
+    return y.to(x_t.dtype), h
 
 
 def quantize_boundary(x):

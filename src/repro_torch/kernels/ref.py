@@ -1,6 +1,6 @@
 """Plain PyTorch oracles (full materialization, fp32 math): the port's
-copy of ``repro/kernels/ref.py`` for the attention kernels and the SL
-boundary quantizer. The decode oracle is the same attention function
+copy of ``repro/kernels/ref.py`` for the attention kernels, the Mamba-2
+SSD scan and the SL boundary quantizer. The decode oracle is the same attention function
 with ``causal=False`` and the per-batch valid lengths in ``kv_len``.
 """
 from __future__ import annotations
@@ -48,6 +48,31 @@ def decode_attention(q, k, v, lengths):
     """Decode oracle: one query per batch row against a cache whose first
     ``lengths[b]`` rows are valid. q: (B, H, 1, D); k, v: (B, KV, S, D)."""
     return attention(q, k, v, causal=False, kv_len=lengths)
+
+
+def mamba_ssd(x, dt, a_log, b, c, h0=None):
+    """Sequential Mamba-2 SSD oracle, fp32:
+    h_t = exp(a*dt_t) h_{t-1} + dt_t * (x_t ⊗ b_t);  y_t = h_t c_t.
+
+    x: (B, S, H, P); dt: (B, S, H) positive steps; a_log: (H,) with
+    A = -exp(a_log); b, c: (B, S, N) shared across heads; h0: (B, H, P, N)
+    initial state or None (zeros). Returns (y in x's dtype, h_final f32).
+    """
+    B, S, H, P = x.shape
+    N = b.shape[-1]
+    a = -torch.exp(a_log.float())                                # (H,)
+    xf, dtf, bf, cf = x.float(), dt.float(), b.float(), c.float()
+    h = (torch.zeros((B, H, P, N), dtype=torch.float32, device=x.device)
+         if h0 is None else h0.float())
+    ys = []
+    for t in range(S):
+        decay = torch.exp(a[None] * dtf[:, t])                   # (B, H)
+        upd = (dtf[:, t, :, None, None] * xf[:, t, :, :, None]
+               * bf[:, t, None, None, :])                        # (B,H,P,N)
+        h = h * decay[..., None, None] + upd
+        ys.append(torch.einsum("bhpn,bn->bhp", h, cf[:, t]))
+    y = torch.stack(ys, dim=1) if ys else xf.new_zeros((B, 0, H, P))
+    return y.to(x.dtype), h
 
 
 def quantize_rows(x):

@@ -1,10 +1,10 @@
-"""Model layers of the dense attention block: RMSNorm, RoPE, GQA attention
-(train/prefill and self-attention decode) and the SwiGLU/GELU MLP.
+"""Model layers: RMSNorm, RoPE, GQA attention (train/prefill and
+self-attention decode), the SwiGLU/GELU MLP and the Mamba-2 block.
 
 Each layer is a (spec_*, apply_*) pair as in ``repro/models/layers.py``.
 Compute runs in the activation dtype; weights are cast to it at each
 matmul (a no-op when the serving engine has cast them once already);
-attention math is f32 inside the kernels.
+attention and scan math is f32 inside the kernels.
 """
 from __future__ import annotations
 
@@ -145,3 +145,76 @@ def apply_mlp(p, x, ctx: Ctx):
     else:                             # jax.nn.gelu defaults to the tanh form
         h = F.gelu(h.float(), approximate="tanh").to(dt)
     return h @ p["wo"].to(dt)
+
+
+# --------------------------------------------------------------------------
+# Mamba-2 block.
+# --------------------------------------------------------------------------
+
+MAMBA_CHUNK = 128                # the SSD scan's chunk (the reference's)
+
+
+def spec_mamba2(cfg) -> Dict:
+    d = cfg.d_model
+    di, H, _, N = mamba_dims(cfg)
+    return {
+        "w_in": ParamSpec((d, 2 * di)),
+        "conv_w": ParamSpec((4, di), scale=0.5),
+        "w_bc": ParamSpec((di, 2 * N)),
+        "w_dt": ParamSpec((di, H), scale=0.02),
+        "dt_bias": ParamSpec((H,), "zeros"),
+        "a_log": ParamSpec((H,), "zeros"),
+        "d_skip": ParamSpec((H,), "ones"),
+        "w_out": ParamSpec((di, d)),
+    }
+
+
+def mamba_dims(cfg):
+    """(d_inner, heads H, head channels P = 64, state size N)."""
+    di = cfg.d_inner
+    H = di // min(64, di)
+    return di, H, di // H, cfg.ssm_state or 64
+
+
+def apply_mamba2(p, x, ctx: Ctx, cache=None):
+    """x: (B, S, d). cache: {'conv': (B, 3, di), 'h': (B, H, P, N) f32}
+    for decode, updated in place (the reference returns a copy). At
+    prefill the new cache holds the last 3 inputs of the conv (zero-padded
+    on the left for prompts shorter than 3) and the scan's final state.
+    ``conv_w``, ``dt_bias`` and ``a_log`` are read in f32."""
+    di, H, P, N = mamba_dims(ctx.cfg)
+    B, S, _ = x.shape
+    dt_ = x.dtype
+
+    xs, z = (x @ p["w_in"].to(dt_)).chunk(2, dim=-1)        # (B, S, di)
+    conv_w = p["conv_w"].float()                            # (4, di)
+    if ctx.mode == "decode":
+        hist = torch.cat([cache["conv"].to(dt_), xs], dim=1)    # (B, 4, di)
+        xc = torch.einsum("bkd,kd->bd", hist.float(), conv_w)[:, None, :]
+    else:
+        pad = F.pad(xs.float(), (0, 0, 3, 0))
+        xc = sum(pad[:, i:i + S] * conv_w[i] for i in range(4))
+    xc = F.silu(xc).to(dt_)
+
+    bmat, cmat = (xc @ p["w_bc"].to(dt_)).chunk(2, dim=-1)  # (B, S, N) each
+    dt_pre = xc @ p["w_dt"].to(dt_)                         # (B, S, H)
+    dtv = F.softplus(dt_pre.float() + p["dt_bias"].float())
+    xh = xc.reshape(B, S, H, P)
+
+    if ctx.mode == "decode":
+        y, h_new = ops.mamba_decode_step(cache["h"], xh[:, 0], dtv[:, 0],
+                                         p["a_log"], bmat[:, 0], cmat[:, 0])
+        y = y[:, None]                                      # (B, 1, H, P)
+        cache["conv"].copy_(hist[:, 1:])
+        cache["h"].copy_(h_new)
+        new_cache = cache
+    else:
+        y, h_final = ops.mamba_scan(xh, dtv, p["a_log"], bmat, cmat,
+                                    chunk=MAMBA_CHUNK)
+        new_cache = None
+        if ctx.mode == "prefill":
+            tail = F.pad(xs, (0, 0, 3, 0))[:, S:S + 3]
+            new_cache = {"conv": tail, "h": h_final}
+    y = y + xh * p["d_skip"].to(dt_)[None, None, :, None]
+    y = y.reshape(B, S, di) * F.silu(z.float()).to(dt_)
+    return y @ p["w_out"].to(dt_), new_cache

@@ -1,18 +1,25 @@
-"""The dense LM for serving: embedding -> stacked attention units -> norm
--> tied or untied head. The port of ``repro/models/lm.py`` for the dense
-pattern (``attn`` blocks only).
+"""The LM for serving: embedding -> stacked pattern units -> norm -> tied
+or untied head. The port of ``repro/models/lm.py`` for the block kinds
+``attn``, ``mamba2`` and ``shared_attn`` (dense models and Zamba2).
 
 Parameters are nested dicts of tensors in the reference's tree layout:
-``units`` leaves carry a leading unit axis, so
+``units`` holds one entry per non-shared block of the pattern unit,
+keyed ``f"{j}:{kind}"``, whose leaves carry a leading unit axis; Zamba2's
+shared attention block is the top-level ``shared`` entry, applied at
+every ``shared_attn`` position. So
 :func:`repro_torch.models.param.from_jax_params` converts a reference
 tree leaf by leaf. The unit loop is a Python loop over that axis (the
 reference's ``lax.scan``).
 
+Caches are nested dicts keyed like the unit (shared positions included)
+whose leaves carry a leading unit axis: ``{"attn": {"k", "v"}}`` for an
+attention block, ``{"mamba": {"conv", "h"}}`` for a Mamba-2 block.
+
 Entry points:
   init / abstract_params            parameter trees
   forward                           logits for train/prefill (+ caches)
-  init_cache / cache_from_prefill   decode caches (n_units, B, KV, S, dh)
-  decode_step                       one token vs the KV cache
+  init_cache / cache_from_prefill   decode caches
+  decode_step                       one token vs the caches
   split_serve_params / decode_step_split   the same, cut at a unit
 """
 from __future__ import annotations
@@ -24,21 +31,27 @@ import torch
 
 from repro_torch.models import layers as L
 from repro_torch.models.param import ParamSpec, init_params, map_tree
+from repro_torch.utils.treeutil import tree_leaves
+
+SERVED_KINDS = ("attn", "mamba2", "shared_attn")
 
 
-def _check_dense(cfg):
-    if cfg.pattern_unit() != ("attn",) or cfg.enc_dec or cfg.mrope:
+def _check_served(cfg):
+    unit = cfg.pattern_unit()
+    if not set(unit) <= set(SERVED_KINDS) or cfg.enc_dec or cfg.mrope:
         raise NotImplementedError(
-            f"{cfg.name}: the port serves dense attention models only "
-            f"(pattern {cfg.pattern_unit()})")
+            f"{cfg.name}: the port serves block kinds {SERVED_KINDS} without "
+            f"enc-dec or M-RoPE (pattern {unit})")
 
 
 # --------------------------------------------------------------------------
 # Param specs.
 # --------------------------------------------------------------------------
 
-def _block_spec(cfg) -> Dict:
+def _block_spec(cfg, kind: str) -> Dict:
     d = cfg.d_model
+    if kind == "mamba2":
+        return {"norm1": L.spec_rmsnorm(d), "mamba": L.spec_mamba2(cfg)}
     spec = {"norm1": L.spec_rmsnorm(d), "attn": L.spec_attention(cfg)}
     if cfg.d_ff:
         spec["norm2"] = L.spec_rmsnorm(d)
@@ -46,16 +59,24 @@ def _block_spec(cfg) -> Dict:
     return spec
 
 
+def _unit_spec(cfg) -> Dict:
+    return {f"{j}:{kind}": _block_spec(cfg, kind)
+            for j, kind in enumerate(cfg.pattern_unit())
+            if kind != "shared_attn"}
+
+
 def abstract_params(cfg) -> Dict:
-    _check_dense(cfg)
+    _check_served(cfg)
     d, V = cfg.d_model, cfg.vocab
     stack = lambda s: ParamSpec((cfg.n_units,) + s.shape, s.init, s.scale,
                                 s.dtype)
     tree: Dict[str, Any] = {
         "embed": ParamSpec((V, d), "embed"),
-        "units": {"0:attn": map_tree(stack, _block_spec(cfg))},
+        "units": map_tree(stack, _unit_spec(cfg)),
         "final_norm": L.spec_rmsnorm(d),
     }
+    if "shared_attn" in cfg.pattern_unit():
+        tree["shared"] = _block_spec(cfg, "shared_attn")
     if not cfg.tie_embeddings:
         tree["head"] = ParamSpec((d, V))
     return tree
@@ -66,28 +87,59 @@ def init(cfg, generator: torch.Generator) -> Dict:
     return init_params(abstract_params(cfg), generator)
 
 
-def _unit(params_units, u: int):
-    return map_tree(lambda a: a[u], params_units)
+def _unit(tree, u: int):
+    return map_tree(lambda a: a[u], tree)
 
 
 def _n_units(params) -> int:
-    return params["units"]["0:attn"]["norm1"]["scale"].shape[0]
+    return tree_leaves(params["units"])[0].shape[0]
+
+
+def _stack(trees):
+    """Trees of one layout -> one tree whose leaves gain a leading axis."""
+    if isinstance(trees[0], dict):
+        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
+    return torch.stack(trees)
 
 
 # --------------------------------------------------------------------------
 # Blocks and forward.
 # --------------------------------------------------------------------------
 
-def _apply_block(cfg, p, x, ctx: L.Ctx, cache):
-    """Pre-norm residual attention block. Returns (x, attention cache)."""
-    h, nc = L.apply_attention(p["attn"], L.rmsnorm(p["norm1"], x, cfg.norm_eps),
-                              ctx, causal=cfg.causal, window=cfg.window,
-                              cache=cache)
+def _apply_block(cfg, kind: str, p, x, ctx: L.Ctx, cache):
+    """Pre-norm residual block. Returns (x, new cache dict)."""
+    cache = cache or {}
+    new_cache: Dict[str, Any] = {}
+    xn = L.rmsnorm(p["norm1"], x, cfg.norm_eps)
+    if kind == "mamba2":
+        h, nc = L.apply_mamba2(p["mamba"], xn, ctx, cache=cache.get("mamba"))
+        x = x + h
+        if nc is not None:
+            new_cache["mamba"] = nc
+        return x, new_cache
+    h, nc = L.apply_attention(p["attn"], xn, ctx, causal=cfg.causal,
+                              window=cfg.window, cache=cache.get("attn"))
     x = x + h
+    if nc is not None:
+        new_cache["attn"] = nc
     if cfg.d_ff:
         x = x + L.apply_mlp(p["mlp"], L.rmsnorm(p["norm2"], x, cfg.norm_eps),
                             ctx)
-    return x, nc
+    return x, new_cache
+
+
+def _apply_unit(cfg, unit_params, shared_params, x, ctx: L.Ctx, unit_cache):
+    """The blocks of one pattern unit in order; ``shared_attn`` positions
+    use ``shared_params``. Returns (x, caches keyed like the unit)."""
+    new_caches = {}
+    for j, kind in enumerate(cfg.pattern_unit()):
+        key = f"{j}:{kind}"
+        p = shared_params if kind == "shared_attn" else unit_params[key]
+        c = unit_cache.get(key) if unit_cache else None
+        x, nc = _apply_block(cfg, kind, p, x, ctx, c)
+        if nc:
+            new_caches[key] = nc
+    return x, new_caches
 
 
 def _embed_tokens(params, tokens, act_dtype):
@@ -104,27 +156,22 @@ def _rope_for(cfg, seq: int, device, positions=None):
 def forward(cfg, params, tokens, *, ctx: L.Ctx):
     """Full-sequence logits. mode = train (no cache) or prefill.
 
-    Returns (logits fp32, aux_loss (0 for dense), caches_or_None) with
-    caches ``{"0:attn": {"attn": {"k", "v"}}}`` stacked (n_units, B, KV,
-    S, dh).
+    Returns (logits fp32, aux_loss (0: no MoE), caches_or_None) with the
+    caches stacked along a leading unit axis (module docstring).
     """
-    _check_dense(cfg)
+    _check_served(cfg)
     B, S = tokens.shape
     x = _embed_tokens(params, tokens, ctx.act_dtype)
     ctx = dataclasses.replace(ctx, rope=_rope_for(cfg, S, tokens.device))
-    ks, vs = [], []
+    shared = params.get("shared")
+    per_unit = []
     for u in range(_n_units(params)):
-        x, nc = _apply_block(cfg, _unit(params["units"], u)["0:attn"], x, ctx,
-                             None)
-        if ctx.mode == "prefill":
-            ks.append(nc["k"])
-            vs.append(nc["v"])
+        x, caches = _apply_unit(cfg, _unit(params["units"], u), shared, x,
+                                ctx, None)
+        per_unit.append(caches)
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
     logits = _head(cfg, params, x)
-    caches = None
-    if ctx.mode == "prefill":
-        caches = {"0:attn": {"attn": {"k": torch.stack(ks),
-                                      "v": torch.stack(vs)}}}
+    caches = _stack(per_unit) if ctx.mode == "prefill" else None
     return logits, torch.zeros((), device=x.device), caches
 
 
@@ -141,22 +188,36 @@ def _head(cfg, params, x):
 # Serving: cache init + single-token decode.
 # --------------------------------------------------------------------------
 
-def init_cache(cfg, batch: int, s_max: int, act_dtype=torch.bfloat16,
-               device="cpu") -> Dict:
-    """Per-unit stacked cache (leading axis n_units), zeros."""
-    _check_dense(cfg)
+def _block_cache_shapes(cfg, kind: str, batch: int, s_max: int, act_dtype,
+                        device) -> Dict:
+    zeros = lambda shape, dt: torch.zeros((cfg.n_units,) + shape, dtype=dt,
+                                          device=device)
+    if kind == "mamba2":
+        di, H, P, N = L.mamba_dims(cfg)
+        return {"mamba": {"conv": zeros((batch, 3, di), act_dtype),
+                          "h": zeros((batch, H, P, N), torch.float32)}}
     s_eff = min(cfg.window, s_max) if cfg.window else s_max
-    shape = (cfg.n_units, batch, cfg.n_kv_heads, s_eff, cfg.head_dim)
-    return {"0:attn": {"attn": {
-        "k": torch.zeros(shape, dtype=act_dtype, device=device),
-        "v": torch.zeros(shape, dtype=act_dtype, device=device)}}}
+    shape = (batch, cfg.n_kv_heads, s_eff, cfg.head_dim)
+    return {"attn": {"k": zeros(shape, act_dtype),
+                     "v": zeros(shape, act_dtype)}}
+
+
+def init_cache(cfg, batch: int, s_max: int, act_dtype, device) -> Dict:
+    """Per-unit stacked decode cache (leading axis n_units), zeros, on
+    ``device``."""
+    _check_served(cfg)
+    return {f"{j}:{kind}": _block_cache_shapes(cfg, kind, batch, s_max,
+                                               act_dtype, device)
+            for j, kind in enumerate(cfg.pattern_unit())}
 
 
 def cache_from_prefill(cfg, caches, s_max: int, act_dtype=torch.bfloat16):
     """Convert ``forward(mode="prefill")`` caches into a decode cache of
-    capacity ``s_max``: full-attention K/V pad to s_max; sliding-window
-    K/V scatter the last ``window`` positions into their ring slots
-    (slot = pos % window), matching the decode write index."""
+    capacity ``s_max``. Recurrent states (mamba) pass through as copies,
+    since decode updates the cache in place; full-attention K/V pad to
+    s_max; sliding-window K/V scatter the last
+    ``window`` positions into their ring slots (slot = pos % window),
+    matching the decode write index."""
     def ring(kv):
         U, B, KV, S, dh = kv.shape
         s_eff = min(cfg.window, s_max) if cfg.window else s_max
@@ -167,18 +228,19 @@ def cache_from_prefill(cfg, caches, s_max: int, act_dtype=torch.bfloat16):
         out[:, :, :, slots, :] = kv[:, :, :, S - take:, :].to(act_dtype)
         return out
 
-    return {key: {sub: {kk: ring(vv) for kk, vv in val.items()}
+    return {key: {sub: ({kk: ring(vv) for kk, vv in val.items()}
+                        if sub == "attn" else map_tree(torch.clone, val))
                   for sub, val in blk.items()}
             for key, blk in caches.items()}
 
 
 def _decode_units(cfg, params, cache, x, ctx):
     """Apply every unit of ``params`` to the one-token activation ``x``,
-    writing each unit's K/V into its slice of ``cache`` in place."""
-    kv = cache["0:attn"]["attn"]
+    updating each unit's slice of ``cache`` in place."""
+    shared = params.get("shared")
     for u in range(_n_units(params)):
-        x, _ = _apply_block(cfg, _unit(params["units"], u)["0:attn"], x, ctx,
-                            {"k": kv["k"][u], "v": kv["v"][u]})
+        x, _ = _apply_unit(cfg, _unit(params["units"], u), shared, x, ctx,
+                           _unit(cache, u))
     return x
 
 
@@ -194,7 +256,7 @@ def decode_step(cfg, params, cache, tokens, positions, *, ctx: L.Ctx):
     Returns (logits (B, 1, V) fp32, cache). The cache is updated in place
     (the reference returns an updated copy); the same dict is returned.
     """
-    _check_dense(cfg)
+    _check_served(cfg)
     x = _embed_tokens(params, tokens, ctx.act_dtype)
     x = _decode_units(cfg, params, cache, x, _decode_ctx(cfg, ctx, positions))
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
@@ -211,13 +273,14 @@ def split_serve_params(cfg, params, cut_units: int):
     Returns ``(params_sat, params_gnd)``: the satellite half holds the
     embedding and units ``[0, cut)``; the ground half holds units
     ``[cut, U)``, the final norm and the head (for tied embeddings the
-    ground keeps its own reference to the embedding matrix). Unit leaves
-    are views of ``params``.
+    ground keeps its own reference to the embedding matrix). Zamba2's
+    shared block goes to both halves, as it is applied inside units on
+    each side. Unit leaves are views of ``params``.
     """
     if not 1 <= cut_units <= cfg.n_units - 1:
         raise ValueError(f"cut_units must be in [1, {cfg.n_units - 1}], "
                          f"got {cut_units}")
-    _check_dense(cfg)
+    _check_served(cfg)
     pa = {"embed": params["embed"],
           "units": map_tree(lambda a: a[:cut_units], params["units"])}
     pb = {"units": map_tree(lambda a: a[cut_units:], params["units"]),
@@ -226,6 +289,9 @@ def split_serve_params(cfg, params, cut_units: int):
         pb["embed"] = params["embed"]
     else:
         pb["head"] = params["head"]
+    if "shared" in params:
+        pa["shared"] = params["shared"]
+        pb["shared"] = params["shared"]
     return pa, pb
 
 
@@ -234,7 +300,7 @@ def decode_step_split(cfg, params_sat, params_gnd, cache, tokens, positions,
     """One decode step of the SPLIT model: the satellite half's units,
     then the ground half's, in the same order as :func:`decode_step`.
 
-    ``cache`` is the full stacked decode cache; each half writes its own
+    ``cache`` is the full stacked decode cache; each half updates its own
     unit slices in place. Returns ``(logits (B, 1, V) fp32, cache,
     boundary)`` where ``boundary`` is the activation ``(B, 1, d_model)``
     that crosses the satellite->ground downlink.
@@ -242,10 +308,9 @@ def decode_step_split(cfg, params_sat, params_gnd, cache, tokens, positions,
     cut = _n_units(params_sat)
     x = _embed_tokens(params_sat, tokens, ctx.act_dtype)
     dctx = _decode_ctx(cfg, ctx, positions)
-    kv = cache["0:attn"]["attn"]
-    half = lambda lo, hi: {"0:attn": {"attn": {"k": kv["k"][lo:hi],
-                                               "v": kv["v"][lo:hi]}}}
-    boundary = _decode_units(cfg, params_sat, half(0, cut), x, dctx)
-    x = _decode_units(cfg, params_gnd, half(cut, None), boundary, dctx)
+    boundary = _decode_units(cfg, params_sat,
+                             map_tree(lambda a: a[:cut], cache), x, dctx)
+    x = _decode_units(cfg, params_gnd, map_tree(lambda a: a[cut:], cache),
+                      boundary, dctx)
     x = L.rmsnorm(params_gnd["final_norm"], x, cfg.norm_eps)
     return _head(cfg, params_gnd, x), cache, boundary

@@ -8,11 +8,13 @@ runs through ``forward`` in prefill mode, its cache is converted with
 token-by-token loop (``prefill="loop"``) is kept as the parity reference.
 
 On a CUDA device every attention call goes through the hand-written
-kernels (prefill: ``flash_attn_fwd``, decode: ``decode_attn``); on the
-CPU through their plain versions. The engine casts the matmul weights
-(every parameter but the norm scales) to the activation dtype once at
-construction. The reference casts them inside each matmul, which
-gives the same values; norm scales stay f32 as the reference reads them.
+kernels (prefill: ``flash_attn_fwd``, decode: ``decode_attn``), on the
+CPU through their plain versions; Mamba-2 prefill goes through the
+chunked-scan kernel (``mamba_scan``), its decode step through plain
+PyTorch as in the reference. The engine casts the matmul weights to the
+activation dtype once at construction. The reference casts them inside
+each matmul, which gives the same values; the leaves the reference
+reads in f32 (norm scales, ``conv_w``, ``dt_bias``, ``a_log``) stay f32.
 """
 from __future__ import annotations
 
@@ -27,13 +29,29 @@ from repro_torch.models import lm
 from repro_torch.models.layers import Ctx
 
 
+# Leaves the reference reads with ``.astype(float32)``: rounding them to
+# the activation dtype first would change what the model computes.
+F32_LEAVES = ("scale", "conv_w", "dt_bias", "a_log")
+
+
 def _cast_matmul_weights(tree, act_dtype, device, key=None):
     """``tree`` on ``device`` with every weight in ``act_dtype`` except
-    the norm scales (leaves named ``scale``), which stay f32."""
+    the leaves named in ``F32_LEAVES``, which stay f32."""
     if isinstance(tree, dict):
         return {k: _cast_matmul_weights(v, act_dtype, device, k)
                 for k, v in tree.items()}
-    return tree.to(device, torch.float32 if key == "scale" else act_dtype)
+    return tree.to(device, torch.float32 if key in F32_LEAVES else act_dtype)
+
+
+def _splice(full, one, slot: int):
+    """Write the batch-1 cache ``one`` into batch row ``slot`` of
+    ``full``, leaf by leaf (every leaf is (n_units, batch, ...)), cast to
+    the destination's dtype."""
+    if isinstance(full, dict):
+        for k in full:
+            _splice(full[k], one[k], slot)
+    else:
+        full[:, slot] = one[:, 0].to(full.dtype)
 
 
 @dataclasses.dataclass
@@ -61,7 +79,8 @@ class DecodeEngine:
         self.act_dtype = act_dtype
         self.prefill_mode = prefill
         self.ctx = Ctx(cfg=cfg, mode="decode", act_dtype=act_dtype)
-        self.cache = lm.init_cache(cfg, n_slots, s_max, act_dtype, self.device)
+        self.cache = lm.init_cache(cfg, n_slots, s_max, act_dtype,
+                                   self.device)
         self.positions = np.zeros((n_slots,), np.int32)
         self.budget = np.zeros((n_slots,), np.int32)
         self.last_tok = np.zeros((n_slots,), np.int32)
@@ -104,20 +123,17 @@ class DecodeEngine:
             self._prefill_into_slot_loop(slot, req)
             return
         nxt, cache1 = self._prefill(req.prompt)
-        # splice the single-request cache into this slot's batch row;
-        # every cache leaf is (n_units, batch, ...)
-        for key, blk in cache1.items():
-            for sub, kv in blk.items():
-                for name, one in kv.items():
-                    self.cache[key][sub][name][:, slot] = one[:, 0]
+        _splice(self.cache, cache1, slot)
         self.positions[slot] = len(req.prompt)
         self.last_tok[slot] = nxt
 
     def _prefill_into_slot_loop(self, slot: int, req: Request):
         """Token-by-token prefill, the parity reference only: one
         full-batch decode step per prompt token, pushing a zero token
-        through every other live slot (its attention row is overwritten
-        at that slot's next real write)."""
+        through every other live slot. Its attention row is overwritten
+        at that slot's next real write, but its recurrent (mamba) state
+        advances, and a refilled slot starts from its last request's
+        state. On Zamba2 it is the reference's loop, not a prefill."""
         pos = 0
         for t in req.prompt:
             toks = np.zeros((self.n_slots, 1), np.int32)

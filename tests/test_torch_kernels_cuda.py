@@ -5,7 +5,8 @@ tests/test_torch_kernels_cuda.py``. Every test skips without a card."""
 import pytest
 import torch
 
-from repro_torch.kernels import decode_attn, flash_attn, ops, split_quant
+from repro_torch.kernels import (decode_attn, flash_attn, mamba_scan, ops,
+                                 split_quant)
 
 
 def require_cuda():
@@ -21,6 +22,7 @@ DECODE_CASES = [
     (2, 2, 1, 64, 128, [64, 17]),
     (4, 15, 5, 96, 64, [1, 96, 33, 50]),
     (8, 15, 5, 2048, 64, [1, 2048, 100, 513, 1024, 37, 2000, 777]),
+    (8, 32, 32, 2048, 64, [1, 2048, 100, 513, 1024, 37, 2000, 777]),  # Zamba2
 ]
 
 
@@ -31,6 +33,7 @@ DECODE_CASES = [
     (2, 4, 2, 200, 200, 32, True, None),
     (1, 8, 2, 150, 150, 32, True, 70),
     (2, 3, 1, 65, 130, 32, False, None),
+    (1, 32, 32, 300, 300, 64, True, None),        # Zamba2's MHA, group 1
 ])
 def test_flash_kernel_vs_plain(B, H, KV, Sq, Skv, D, causal, window, dtype):
     dev = require_cuda()
@@ -105,3 +108,87 @@ def test_ste_quantize_on_the_card_counts_launches():
     q, s = split_quant.quantize_rows_plain(x.detach().reshape(-1, 128))
     assert torch.equal(y.detach().reshape(-1, 128), q.float() * s)
     assert torch.equal(x.grad, torch.full_like(x, 3.0))
+
+
+# (B, S, H, P, N, chunk): the reference's MAMBA_SWEEP, S = 1, and
+# Zamba2-1.2B's full-width heads (H=64, P=N=64) with ragged last chunks.
+MAMBA_CASES = [
+    (1, 64, 2, 8, 4, 32), (2, 100, 3, 16, 8, 32), (1, 257, 4, 32, 16, 64),
+    (1, 1, 64, 64, 64, 128), (1, 100, 64, 64, 64, 128),
+    (2, 257, 64, 64, 64, 128), (1, 512, 64, 64, 64, 128),
+    (1, 130, 2, 64, 16, 128),
+]
+
+
+def _mamba_inputs(B, S, H, P, N, dtype, dev, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    rnd = lambda *s: torch.randn(s, generator=g, device=dev)
+    x = rnd(B, S, H, P).to(dtype)
+    dt = torch.nn.functional.softplus(rnd(B, S, H))
+    a_log = rnd(H) * 0.5
+    return x, dt, a_log, rnd(B, S, N).to(dtype), rnd(B, S, N).to(dtype)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,H,P,N,chunk", MAMBA_CASES)
+def test_mamba_kernel_vs_plain(B, S, H, P, N, chunk, dtype):
+    dev = require_cuda()
+    args = _mamba_inputs(B, S, H, P, N, dtype, dev)
+    n0 = mamba_scan.mamba_chunk_scan.launches
+    y, h = mamba_scan.mamba_chunk_scan(*args, chunk=chunk)
+    yp, hp = mamba_scan.mamba_chunk_scan_plain(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    assert mamba_scan.mamba_chunk_scan.launches == n0 + 1
+    assert y.dtype == dtype and h.dtype == torch.float32
+    # f32: the reference's scan tolerance; bf16: y rounds to bf16 after
+    # f32 sums taken in another order (1 ulp = 2**-8 relative)
+    tol = 2e-2 if dtype == torch.bfloat16 else 5e-4
+    torch.testing.assert_close(y.float(), yp.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(h, hp, atol=tol, rtol=tol)
+
+
+@pytest.mark.requires_cuda
+def test_mamba_kernel_rejects_what_it_does_not_take():
+    dev = require_cuda()
+    x, dt, a_log, b, c = _mamba_inputs(1, 300, 2, 64, 16, torch.float32, dev)
+    with pytest.raises(ValueError, match="chunk"):
+        mamba_scan.mamba_chunk_scan(x, dt, a_log, b, c, chunk=256)
+    with pytest.raises(ValueError, match="dtypes"):
+        mamba_scan.mamba_chunk_scan(x, dt.bfloat16(), a_log, b, c)
+    b, c = torch.zeros(1, 300, 128, device=dev), torch.zeros(1, 300, 128,
+                                                             device=dev)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        mamba_scan.mamba_chunk_scan(x, dt, a_log, b, c)   # N=128: no room
+
+
+@pytest.mark.requires_cuda
+def test_zamba2_smoke_prefill_and_decode_on_the_card():
+    """The Zamba2 smoke LM in f32 through the three kernels against the
+    same model's plain path on the CPU (head dim 32: the flash kernel
+    takes 32 and 64, the smoke config has 16)."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.models import lm
+    from repro_torch.models.layers import Ctx
+    from repro_torch.models.param import map_tree
+
+    dev = require_cuda()
+    cfg = dataclasses.replace(configs.get_smoke("zamba2_1_2b"), d_head=32)
+    params = lm.init(cfg, torch.Generator().manual_seed(0))
+    tokens = torch.randint(0, cfg.vocab, (2, 150),
+                           generator=torch.Generator().manual_seed(1))
+    out = {}
+    for d in ("cpu", dev):
+        p = map_tree(lambda t: t.to(d), params)
+        ctx = Ctx(cfg=cfg, mode="prefill", act_dtype=torch.float32)
+        logits, _, caches = lm.forward(cfg, p, tokens.to(d), ctx=ctx)
+        cache = lm.cache_from_prefill(cfg, caches, 160, torch.float32)
+        step, _ = lm.decode_step(
+            cfg, p, cache, tokens[:, -1:].to(d),
+            torch.tensor([150, 150], device=d),
+            ctx=Ctx(cfg=cfg, mode="decode", act_dtype=torch.float32))
+        out[str(d)] = (logits.cpu(), step.cpu())
+    for got, want in zip(out[str(dev)], out["cpu"]):
+        torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)

@@ -1,7 +1,7 @@
 """Parameter trees: the converter between the two packages is bitwise,
-the port's tree has the reference's shapes at full SmolLM-360M width
-(shapes only, nothing full-width is allocated), and the seeded init
-follows the reference's rules."""
+the port's tree has the reference's shapes at full SmolLM-360M and
+Zamba2-1.2B width (shapes only, nothing full-width is allocated), and
+the seeded init follows the reference's rules."""
 import jax
 import numpy as np
 import pytest
@@ -22,8 +22,8 @@ def _paths(tree, prefix=""):
     return {prefix: tree}
 
 
-def test_converter_round_trip_is_bitwise():
-    jcfg = jconfigs.get_smoke("smollm_360m")
+def _assert_round_trip_bitwise(arch):
+    jcfg = jconfigs.get_smoke(arch)
     ref = jax_tree_to_numpy(jlm.init(jcfg, jax.random.key(3)))
     port = from_jax_params(ref)
     back = to_jax_params(port)
@@ -33,9 +33,26 @@ def test_converter_round_trip_is_bitwise():
         assert got[path].dtype == a.dtype, path
         np.testing.assert_array_equal(got[path], a, err_msg=path)
         assert isinstance(_paths(port)[path], torch.Tensor)
+    assert _paths(lm.abstract_params(configs.get_smoke(arch))).keys() \
+        == want.keys()
 
 
-@pytest.mark.parametrize("name", ["smollm_360m"])
+def test_converter_round_trip_is_bitwise():
+    _assert_round_trip_bitwise("smollm_360m")
+
+
+def test_converter_round_trip_is_bitwise_zamba2():
+    """The hybrid tree: stacked mamba2 units plus the top-level shared
+    attention block."""
+    _assert_round_trip_bitwise("zamba2_1_2b")
+
+
+# Parameters at full width, from the reference's own tree (SmolLM-360M
+# with its tied head; Zamba2-1.2B with its one shared attention block).
+FULL_WIDTH_PARAMS = {"smollm_360m": 361_821_120, "zamba2_1_2b": 977_313_408}
+
+
+@pytest.mark.parametrize("name", sorted(FULL_WIDTH_PARAMS))
 def test_full_width_shapes_match_reference(name):
     jshapes = _paths(jax.eval_shape(
         lambda: jlm.init(jconfigs.get(name), jax.random.key(0))))
@@ -45,7 +62,7 @@ def test_full_width_shapes_match_reference(name):
         assert specs[path].shape == s.shape, path
         assert specs[path].dtype == torch.float32 and s.dtype == np.float32
     n = sum(int(np.prod(s.shape)) for s in jshapes.values())
-    assert 3.5e8 < n < 3.7e8                     # SmolLM-360M, tied head
+    assert n == FULL_WIDTH_PARAMS[name]
 
 
 def test_seeded_init_rules():
