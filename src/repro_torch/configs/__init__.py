@@ -8,8 +8,9 @@ copy over unchanged; of its helpers only those the serving path reads
 are kept.
 
 Block kinds the port serves: ``attn`` (GQA attention + MLP), ``mamba2``
-(Mamba-2 SSD block, no separate MLP) and ``shared_attn`` (Zamba2's one
-attention + MLP block whose weights every occurrence shares).
+(Mamba-2 SSD block, no separate MLP), ``shared_attn`` (Zamba2's one
+attention + MLP block whose weights every occurrence shares), and
+xLSTM's ``mlstm`` (matrix memory) and ``slstm`` (scalar recurrence).
 """
 from __future__ import annotations
 

@@ -16,7 +16,8 @@
 // is read from device memory once per KV head (the Pallas grid streams
 // it once per query head). A cache row is read by D*sizeof(T)/16 lanes
 // with one 16-byte load each, so a warp reads several whole rows in one
-// coalesced request; each lane keeps an online-softmax state (m, l and
+// coalesced request (at D = 16, two lanes a bf16 row and four an f32
+// one); each lane keeps an online-softmax state (m, l and
 // its slice of acc) for every query head of the group. Loads of UNROLL
 // rows are started before any is used, to keep more bytes in flight.
 // Rows at or past lengths[b] are never read. The per-lane states are
@@ -170,6 +171,10 @@ cudaError_t launch(const void* q, const void* k, const void* v,
                    int D, float scale, cudaStream_t st) {
   const dim3 grid(KV, B);
   switch (D) {
+    case 16:
+      decode_kernel<T, 16><<<grid, THREADS, 0, st>>>(
+          (const T*)q, (const T*)k, (const T*)v, lengths, (T*)o, H, KV, S, scale);
+      break;
     case 32:
       decode_kernel<T, 32><<<grid, THREADS, 0, st>>>(
           (const T*)q, (const T*)k, (const T*)v, lengths, (T*)o, H, KV, S, scale);

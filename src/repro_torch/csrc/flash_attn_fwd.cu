@@ -17,8 +17,10 @@
 //
 // Design: one block of 256 threads per (64-row q tile, q head, batch).
 // Four threads share a query row: the row's q lives in each one's
-// registers, each thread scores 16 of the 64 keys of a tile and owns 16
-// of the D output columns. K and V tiles of 64 rows are staged in shared
+// registers, each thread scores 16 of the 64 keys of a tile and owns D/4
+// of the D output columns (D = 16, 32 or 64; at D = 16 a row of q is 32
+// bytes of bf16, two 16-byte loads, and a tile of K is 128 such loads,
+// so half of the threads load one). K and V tiles of 64 rows are staged in shared
 // memory as f32 (K padded by one column so the four threads of a row
 // hit four banks); probabilities move between the four threads by warp
 // shuffles instead of shared memory. Each KV tile is read once per q
@@ -43,8 +45,10 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   constexpr int DJ = D / 4;            // output columns per thread
   constexpr int CJ = BK / 4;           // key columns per thread
   constexpr int CHUNKS = BK * D / VEC; // 16-byte loads per K (or V) tile
+  // bf16 at D = 16: 128 loads per tile, so half the threads load one
   static_assert(D % VEC == 0 && D % 4 == 0, "head_dim");
-  static_assert(CHUNKS % THREADS == 0, "tile load split");
+  static_assert(CHUNKS % THREADS == 0 || THREADS % CHUNKS == 0,
+                "tile load split");
 
   __shared__ float ks[BK][D + 1];
   __shared__ float vs[BK][D];
@@ -88,8 +92,9 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int k_start = kt * BK;
     __syncthreads();                   // previous tile fully consumed
 #pragma unroll
-    for (int it = 0; it < CHUNKS / THREADS; ++it) {
+    for (int it = 0; it < (CHUNKS + THREADS - 1) / THREADS; ++it) {
       const int chunk = tid + it * THREADS;
+      if (chunk >= CHUNKS) break;
       const int row = chunk / (D / VEC);
       const int col = (chunk % (D / VEC)) * VEC;
       const int kpos = k_start + row;
@@ -169,6 +174,11 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    int window, float scale, cudaStream_t st) {
   const dim3 grid((Sq + BQ - 1) / BQ, H, B);
   switch (D) {
+    case 16:
+      flash_fwd_kernel<T, 16><<<grid, THREADS, 0, st>>>(
+          (const T*)q, (const T*)k, (const T*)v, (T*)o, H, KV, Sq, Skv,
+          causal, window, scale);
+      break;
     case 32:
       flash_fwd_kernel<T, 32><<<grid, THREADS, 0, st>>>(
           (const T*)q, (const T*)k, (const T*)v, (T*)o, H, KV, Sq, Skv,

@@ -31,6 +31,7 @@ ENTRY = {
     "decode_attn": [P, P, P, P, P, I, I, I, I, I, F, I, P],
     "split_quant": [P, P, P, I, I, I, I, P],
     "mamba_scan": [P, P, P, P, P, P, P, I, I, I, I, I, I, I, P],
+    "mlstm_scan": [P, P, P, P, P, P, P, P, P, I, I, I, I, I, F, I, P],
 }
 
 _lock = threading.Lock()

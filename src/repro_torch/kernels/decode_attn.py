@@ -22,7 +22,7 @@ from repro_torch.kernels import _build
 
 NEG_INF = -1e30
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 128)
 MAX_GROUP = 8                    # query heads per KV head (MAXG in the source)
 
 

@@ -21,7 +21,7 @@ import torch
 from repro_torch.kernels import _build, ref
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (32, 64)
+HEAD_DIMS = (16, 32, 64)
 
 
 def flash_attention_plain(q, k, v, *, causal: bool = True,

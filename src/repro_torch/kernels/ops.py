@@ -5,13 +5,16 @@ from one to the other.
 """
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels import decode_attn as _decode
 from repro_torch.kernels import flash_attn as _flash
 from repro_torch.kernels import mamba_scan as _mamba
+from repro_torch.kernels import mlstm_scan as _mlstm
 from repro_torch.kernels import ref
 from repro_torch.kernels import split_quant as _quant
 
@@ -51,6 +54,59 @@ def mamba_decode_step(h, x_t, dt_t, a_log, b_t, c_t):
     h = h * decay[..., None, None] + upd
     y = torch.einsum("bhpn,bn->bhp", h, c_t.float())
     return y.to(x_t.dtype), h
+
+
+def mlstm_scan(q, k, v, i_pre, f_pre, *, chunk: int = 256):
+    """xLSTM mLSTM chunkwise scan. q, k, v: (B,S,H,P); i_pre, f_pre:
+    (B,S,H) f32 -> (h (B,S,H,P), (C (B,H,P,P), n (B,H,P), m (B,H)) f32)."""
+    if q.device.type == "cpu":
+        return _mlstm.mlstm_chunk_scan_plain(q, k, v, i_pre, f_pre,
+                                             chunk=chunk)
+    h, (C, n, m) = _mlstm.mlstm_chunk_scan(q, k, v, i_pre, f_pre, chunk=chunk)
+    return h, (C, n[..., 0], m)
+
+
+def mlstm_decode_step(state, q_t, k_t, v_t, i_t, f_t):
+    """Single-token mLSTM update (plain PyTorch on every device, as the
+    reference's is jnp). state = (C (B,H,P,P), n (B,H,P), m (B,H)) f32;
+    q_t, k_t, v_t: (B,H,P); i_t, f_t: (B,H). Returns (h_t (B,H,P) in
+    q_t's dtype, new state)."""
+    C, n, m = state
+    qf = q_t.float() * (1.0 / math.sqrt(q_t.shape[-1]))
+    kf, vf = k_t.float(), v_t.float()
+    li = i_t.float()
+    lf = -F.softplus(-f_t.float())
+    m_new = torch.maximum(lf + m, li)
+    fs = torch.exp(lf + m - m_new)
+    iz = torch.exp(li - m_new)
+    C = fs[..., None, None] * C + iz[..., None, None] * (
+        kf[..., None] * vf[..., None, :])
+    n = fs[..., None] * n + iz[..., None] * kf
+    num = torch.einsum("bhkv,bhk->bhv", C, qf)
+    den = torch.maximum(torch.einsum("bhk,bhk->bh", n, qf).abs(),
+                        torch.exp(-m_new))
+    return (num / den[..., None]).to(q_t.dtype), (C, n, m_new)
+
+
+def slstm_scan(xproj, wh, c0, n0, h0, m0):
+    """Stabilized exponential-gating sLSTM, token by token (a true
+    recurrence; the reference has no kernel for it either). xproj:
+    (B,S,4d) input projections plus bias; wh: (d,4d); c0, n0, h0, m0:
+    (B,d), all f32. Returns (h (B,S,d), (c, n, h, m))."""
+    c, n, h, m = c0, n0, h0, m0
+    hs = []
+    for t in range(xproj.shape[1]):
+        zt, it, ft, ot = (xproj[:, t] + h @ wh).chunk(4, dim=-1)
+        lf = -F.softplus(-ft)
+        m_new = torch.maximum(lf + m, it)
+        i_s = torch.exp(it - m_new)
+        f_s = torch.exp(lf + m - m_new)
+        c = f_s * c + i_s * torch.tanh(zt)
+        n = torch.maximum(f_s * n + i_s, torch.exp(-m_new))
+        h = torch.sigmoid(ot) * (c / n)
+        m = m_new
+        hs.append(h)
+    return torch.stack(hs, dim=1), (c, n, h, m)
 
 
 def quantize_boundary(x):

@@ -1,6 +1,6 @@
 """Plain PyTorch oracles (full materialization, fp32 math): the port's
 copy of ``repro/kernels/ref.py`` for the attention kernels, the Mamba-2
-SSD scan and the SL boundary quantizer. The decode oracle is the same attention function
+SSD scan, the xLSTM mLSTM recurrence and the SL boundary quantizer. The decode oracle is the same attention function
 with ``causal=False`` and the per-batch valid lengths in ``kv_len``.
 """
 from __future__ import annotations
@@ -73,6 +73,45 @@ def mamba_ssd(x, dt, a_log, b, c, h0=None):
         ys.append(torch.einsum("bhpn,bn->bhp", h, cf[:, t]))
     y = torch.stack(ys, dim=1) if ys else xf.new_zeros((B, 0, H, P))
     return y.to(x.dtype), h
+
+
+def mlstm(q, k, v, i_pre, f_pre, state=None):
+    """Sequential stabilized mLSTM oracle (xLSTM eq. 19-27), fp32:
+    C_t = f_t C_{t-1} + i_t k_t v_t^T, n_t = f_t n_{t-1} + i_t k_t,
+    h_t = C_t^T q_t / max(|n_t . q_t|, exp(-m_t)), with log f = log
+    sigmoid(f_pre), log i = i_pre and q scaled by 1/sqrt(P).
+
+    q, k, v: (B, S, H, P); i_pre, f_pre: (B, S, H). state: (C (B,H,P,P),
+    n (B,H,P), m (B,H)) or None (zeros, m = -1e30). Returns (h in q's
+    dtype, (C, n, m) f32).
+    """
+    B, S, H, P = q.shape
+    qf = q.float() * (1.0 / math.sqrt(P))
+    kf, vf = k.float(), v.float()
+    log_i = i_pre.float()
+    log_f = -torch.nn.functional.softplus(-f_pre.float())
+    if state is None:
+        C = torch.zeros((B, H, P, P), dtype=torch.float32, device=q.device)
+        n = torch.zeros((B, H, P), dtype=torch.float32, device=q.device)
+        m = torch.full((B, H), -1e30, dtype=torch.float32, device=q.device)
+    else:
+        C, n, m = (t.float() for t in state)
+    hs = []
+    for t in range(S):
+        li, lf = log_i[:, t], log_f[:, t]
+        m_new = torch.maximum(lf + m, li)
+        fs = torch.exp(lf + m - m_new)[..., None]
+        iz = torch.exp(li - m_new)[..., None]
+        C = fs[..., None] * C + iz[..., None] * (kf[:, t, :, :, None]
+                                                 * vf[:, t, :, None, :])
+        n = fs * n + iz * kf[:, t]
+        num = torch.einsum("bhkv,bhk->bhv", C, qf[:, t])
+        den = torch.maximum(torch.einsum("bhk,bhk->bh", n, qf[:, t]).abs(),
+                            torch.exp(-m_new))
+        hs.append(num / den[..., None])
+        m = m_new
+    h = torch.stack(hs, dim=1) if hs else qf.new_zeros((B, 0, H, P))
+    return h.to(q.dtype), (C, n, m)
 
 
 def quantize_rows(x):

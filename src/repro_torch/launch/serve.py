@@ -32,7 +32,9 @@ def main(argv=None):
                     "splice (bulk) or the token-by-token loop")
     ap.add_argument("--cut", type=int, default=None,
                     help="serve the SPLIT model cut at this unit boundary "
-                    "(satellite half + boundary downlink + ground half)")
+                    "(satellite half + boundary downlink + ground half), in "
+                    "[1, units - 1]: the smoke configs have two units, "
+                    "xlstm_1_3b's one, so it takes no cut")
     ap.add_argument("--device", default="cuda",
                     help="cuda (hand-written kernels) or cpu (their plain "
                     "PyTorch versions)")

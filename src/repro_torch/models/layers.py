@@ -1,5 +1,6 @@
 """Model layers: RMSNorm, RoPE, GQA attention (train/prefill and
-self-attention decode), the SwiGLU/GELU MLP and the Mamba-2 block.
+self-attention decode), the SwiGLU/GELU MLP, the Mamba-2 block and
+xLSTM's mLSTM and sLSTM blocks.
 
 Each layer is a (spec_*, apply_*) pair as in ``repro/models/layers.py``.
 Compute runs in the activation dtype; weights are cast to it at each
@@ -218,3 +219,83 @@ def apply_mamba2(p, x, ctx: Ctx, cache=None):
     y = y + xh * p["d_skip"].to(dt_)[None, None, :, None]
     y = y.reshape(B, S, di) * F.silu(z.float()).to(dt_)
     return y @ p["w_out"].to(dt_), new_cache
+
+
+# --------------------------------------------------------------------------
+# xLSTM blocks.
+# --------------------------------------------------------------------------
+
+MLSTM_CHUNK = 256                # the mLSTM scan's chunk (Ctx.mlstm_chunk)
+
+
+def spec_mlstm(cfg) -> Dict:
+    d, di, H = cfg.d_model, cfg.d_inner, cfg.n_heads
+    return {
+        "w_qkv": ParamSpec((d, 3 * di)),
+        "w_if": ParamSpec((d, 2 * H), scale=0.02),
+        "b_if": ParamSpec((2 * H,), "zeros"),
+        "w_out": ParamSpec((di, d)),
+    }
+
+
+def apply_mlstm(p, x, ctx: Ctx, cache=None):
+    """x: (B, S, d). cache: (C (B,H,P,P), n (B,H,P), m (B,H)) f32 for
+    decode, updated in place (the reference returns a copy). At prefill
+    the new cache is the scan's final state. ``b_if`` is read in f32."""
+    cfg = ctx.cfg
+    B, S, _ = x.shape
+    di, H = cfg.d_inner, cfg.n_heads
+    P = di // H
+    dt_ = x.dtype
+
+    q, k, v = (t.reshape(B, S, H, P)
+               for t in (x @ p["w_qkv"].to(dt_)).chunk(3, dim=-1))
+    gates = (x @ p["w_if"].to(dt_)).float() + p["b_if"].float()
+    i_pre, f_pre = gates.chunk(2, dim=-1)                   # (B, S, H)
+
+    if ctx.mode == "decode":
+        h, state = ops.mlstm_decode_step(
+            cache, q[:, 0], k[:, 0], v[:, 0], i_pre[:, 0], f_pre[:, 0])
+        for dst, src in zip(cache, state):
+            dst.copy_(src)
+        h = h[:, None]
+        new_cache = cache
+    else:
+        h, state = ops.mlstm_scan(q, k, v, i_pre, f_pre, chunk=MLSTM_CHUNK)
+        new_cache = state if ctx.mode == "prefill" else None
+    return h.reshape(B, S, di) @ p["w_out"].to(dt_), new_cache
+
+
+def spec_slstm(cfg) -> Dict:
+    d = cfg.d_model
+    return {
+        "w_x": ParamSpec((d, 4 * d)),
+        "w_h": ParamSpec((d, 4 * d)),
+        "bias": ParamSpec((4 * d,), "zeros"),
+    }
+
+
+def apply_slstm(p, x, ctx: Ctx, cache=None):
+    """Sequential scalar LSTM with exponential gating, all in f32 (its
+    weights too); only the output is cast to the activation dtype.
+    cache: (c, n, h, m) each (B, d) f32 for decode, updated in place. At
+    prefill the new cache is the recurrence's final state."""
+    B, S, d = x.shape
+    xproj = x.float() @ p["w_x"].float() + p["bias"].float()   # (B, S, 4d)
+    if cache is None:
+        zeros = lambda: torch.zeros((B, d), dtype=torch.float32,
+                                    device=x.device)
+        state0 = (zeros(), zeros(), zeros(),
+                  torch.full((B, d), -1e30, dtype=torch.float32,
+                             device=x.device))
+    else:
+        state0 = tuple(t.float() for t in cache)
+    hs, state = ops.slstm_scan(xproj, p["w_h"].float(), *state0)
+    new_cache = None
+    if ctx.mode == "decode":
+        for dst, src in zip(cache, state):
+            dst.copy_(src)
+        new_cache = cache
+    elif ctx.mode == "prefill":
+        new_cache = state
+    return hs.to(x.dtype), new_cache

@@ -1,6 +1,7 @@
 """The LM for serving: embedding -> stacked pattern units -> norm -> tied
 or untied head. The port of ``repro/models/lm.py`` for the block kinds
-``attn``, ``mamba2`` and ``shared_attn`` (dense models and Zamba2).
+``attn``, ``mamba2``, ``shared_attn``, ``mlstm`` and ``slstm`` (dense
+models, Zamba2 and xLSTM).
 
 Parameters are nested dicts of tensors in the reference's tree layout:
 ``units`` holds one entry per non-shared block of the pattern unit,
@@ -13,7 +14,10 @@ reference's ``lax.scan``).
 
 Caches are nested dicts keyed like the unit (shared positions included)
 whose leaves carry a leading unit axis: ``{"attn": {"k", "v"}}`` for an
-attention block, ``{"mamba": {"conv", "h"}}`` for a Mamba-2 block.
+attention block, ``{"mamba": {"conv", "h"}}`` for a Mamba-2 block, and
+tuples as in the reference for xLSTM: ``{"mlstm": (C, n, m)}`` and
+``{"slstm": (c, n, h, m)}``, all f32, with the stabilizer m at -1e30
+before the first token.
 
 Entry points:
   init / abstract_params            parameter trees
@@ -33,7 +37,12 @@ from repro_torch.models import layers as L
 from repro_torch.models.param import ParamSpec, init_params, map_tree
 from repro_torch.utils.treeutil import tree_leaves
 
-SERVED_KINDS = ("attn", "mamba2", "shared_attn")
+SERVED_KINDS = ("attn", "mamba2", "shared_attn", "mlstm", "slstm")
+# Recurrent block kinds: the cache entry (and parameter sub-tree) name,
+# and the block's spec and apply functions.
+RECURRENT = {"mamba2": ("mamba", L.spec_mamba2, L.apply_mamba2),
+             "mlstm": ("mlstm", L.spec_mlstm, L.apply_mlstm),
+             "slstm": ("slstm", L.spec_slstm, L.apply_slstm)}
 
 
 def _check_served(cfg):
@@ -50,8 +59,9 @@ def _check_served(cfg):
 
 def _block_spec(cfg, kind: str) -> Dict:
     d = cfg.d_model
-    if kind == "mamba2":
-        return {"norm1": L.spec_rmsnorm(d), "mamba": L.spec_mamba2(cfg)}
+    if kind in RECURRENT:
+        sub, spec_fn, _ = RECURRENT[kind]
+        return {"norm1": L.spec_rmsnorm(d), sub: spec_fn(cfg)}
     spec = {"norm1": L.spec_rmsnorm(d), "attn": L.spec_attention(cfg)}
     if cfg.d_ff:
         spec["norm2"] = L.spec_rmsnorm(d)
@@ -99,6 +109,8 @@ def _stack(trees):
     """Trees of one layout -> one tree whose leaves gain a leading axis."""
     if isinstance(trees[0], dict):
         return {k: _stack([t[k] for t in trees]) for k in trees[0]}
+    if isinstance(trees[0], tuple):
+        return tuple(_stack(list(items)) for items in zip(*trees))
     return torch.stack(trees)
 
 
@@ -111,11 +123,12 @@ def _apply_block(cfg, kind: str, p, x, ctx: L.Ctx, cache):
     cache = cache or {}
     new_cache: Dict[str, Any] = {}
     xn = L.rmsnorm(p["norm1"], x, cfg.norm_eps)
-    if kind == "mamba2":
-        h, nc = L.apply_mamba2(p["mamba"], xn, ctx, cache=cache.get("mamba"))
+    if kind in RECURRENT:
+        sub, _, apply_fn = RECURRENT[kind]
+        h, nc = apply_fn(p[sub], xn, ctx, cache=cache.get(sub))
         x = x + h
         if nc is not None:
-            new_cache["mamba"] = nc
+            new_cache[sub] = nc
         return x, new_cache
     h, nc = L.apply_attention(p["attn"], xn, ctx, causal=cfg.causal,
                               window=cfg.window, cache=cache.get("attn"))
@@ -196,6 +209,16 @@ def _block_cache_shapes(cfg, kind: str, batch: int, s_max: int, act_dtype,
         di, H, P, N = L.mamba_dims(cfg)
         return {"mamba": {"conv": zeros((batch, 3, di), act_dtype),
                           "h": zeros((batch, H, P, N), torch.float32)}}
+    if kind == "mlstm":
+        H = cfg.n_heads
+        P = cfg.d_inner // H
+        return {"mlstm": (zeros((batch, H, P, P), torch.float32),
+                          zeros((batch, H, P), torch.float32),
+                          zeros((batch, H), torch.float32).fill_(-1e30))}
+    if kind == "slstm":
+        d = cfg.d_model
+        return {"slstm": tuple(zeros((batch, d), torch.float32).fill_(
+            -1e30 if i == 3 else 0.0) for i in range(4))}
     s_eff = min(cfg.window, s_max) if cfg.window else s_max
     shape = (batch, cfg.n_kv_heads, s_eff, cfg.head_dim)
     return {"attn": {"k": zeros(shape, act_dtype),
@@ -213,7 +236,8 @@ def init_cache(cfg, batch: int, s_max: int, act_dtype, device) -> Dict:
 
 def cache_from_prefill(cfg, caches, s_max: int, act_dtype=torch.bfloat16):
     """Convert ``forward(mode="prefill")`` caches into a decode cache of
-    capacity ``s_max``. Recurrent states (mamba) pass through as copies,
+    capacity ``s_max``. Recurrent states (mamba, mlstm, slstm; the
+    xLSTM ones are tuples) pass through as copies,
     since decode updates the cache in place; full-attention K/V pad to
     s_max; sliding-window K/V scatter the last
     ``window`` positions into their ring slots (slot = pos % window),

@@ -28,10 +28,13 @@ class ParamSpec:
 
 
 def map_tree(f: Callable[[Any], Any], tree):
-    """Apply ``f`` to every leaf of a nested dict, keys in sorted order
-    (the order ``jax.tree`` flattens a dict in)."""
+    """Apply ``f`` to every leaf of a tree of dicts and tuples: dict keys
+    in sorted order, tuple items in order (the order ``jax.tree``
+    flattens them in)."""
     if isinstance(tree, dict):
         return {k: map_tree(f, tree[k]) for k in sorted(tree)}
+    if isinstance(tree, tuple):
+        return tuple(map_tree(f, t) for t in tree)
     return f(tree)
 
 

@@ -11,10 +11,12 @@ On a CUDA device every attention call goes through the hand-written
 kernels (prefill: ``flash_attn_fwd``, decode: ``decode_attn``), on the
 CPU through their plain versions; Mamba-2 prefill goes through the
 chunked-scan kernel (``mamba_scan``), its decode step through plain
-PyTorch as in the reference. The engine casts the matmul weights to the
-activation dtype once at construction. The reference casts them inside
-each matmul, which gives the same values; the leaves the reference
-reads in f32 (norm scales, ``conv_w``, ``dt_bias``, ``a_log``) stay f32.
+PyTorch as in the reference. xLSTM's mLSTM prefill goes through the
+mLSTM chunkwise-scan kernel (``mlstm_scan``); its decode step and the
+sLSTM recurrence are plain PyTorch, as in the reference. The engine
+casts the matmul weights to the activation dtype once at construction.
+The reference casts them inside each matmul, which gives the same
+values; the leaves the reference reads in f32 stay f32 (``F32_LEAVES``).
 """
 from __future__ import annotations
 
@@ -30,17 +32,22 @@ from repro_torch.models.layers import Ctx
 
 
 # Leaves the reference reads with ``.astype(float32)``: rounding them to
-# the activation dtype first would change what the model computes.
-F32_LEAVES = ("scale", "conv_w", "dt_bias", "a_log")
+# the activation dtype first would change what the model computes. A
+# name matches that leaf in any block; a (block, name) pair only inside
+# that block's sub-tree (sLSTM's recurrence is all f32, but a ``bias``
+# elsewhere is not).
+F32_LEAVES = ("scale", "conv_w", "dt_bias", "a_log", "b_if",
+              ("slstm", "w_x"), ("slstm", "w_h"), ("slstm", "bias"))
 
 
-def _cast_matmul_weights(tree, act_dtype, device, key=None):
+def _cast_matmul_weights(tree, act_dtype, device, path=()):
     """``tree`` on ``device`` with every weight in ``act_dtype`` except
     the leaves named in ``F32_LEAVES``, which stay f32."""
     if isinstance(tree, dict):
-        return {k: _cast_matmul_weights(v, act_dtype, device, k)
+        return {k: _cast_matmul_weights(v, act_dtype, device, path + (k,))
                 for k, v in tree.items()}
-    return tree.to(device, torch.float32 if key in F32_LEAVES else act_dtype)
+    f32 = path[-1] in F32_LEAVES or path[-2:] in F32_LEAVES
+    return tree.to(device, torch.float32 if f32 else act_dtype)
 
 
 def _splice(full, one, slot: int):
@@ -50,6 +57,9 @@ def _splice(full, one, slot: int):
     if isinstance(full, dict):
         for k in full:
             _splice(full[k], one[k], slot)
+    elif isinstance(full, tuple):
+        for f, o in zip(full, one):
+            _splice(f, o, slot)
     else:
         full[:, slot] = one[:, 0].to(full.dtype)
 

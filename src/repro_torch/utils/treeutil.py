@@ -1,6 +1,7 @@
-"""Helpers over the port's parameter trees: nested dicts of tensors,
-walked in sorted-key order (the order ``jax.tree`` flattens a dict in,
-so names and leaf order match the reference's)."""
+"""Helpers over the port's parameter and cache trees: nested dicts and
+tuples of tensors, dicts walked in sorted-key order and tuples in order
+(the order ``jax.tree`` flattens them in, so names and leaf order match
+the reference's). A tuple item's name is its index."""
 from __future__ import annotations
 
 from typing import List, Tuple
@@ -9,10 +10,11 @@ import torch
 
 
 def tree_flatten_with_names(tree, prefix: str = "") -> List[Tuple[str, torch.Tensor]]:
-    """(dotted_name, leaf) pairs of a nested dict, sorted by key."""
-    if isinstance(tree, dict):
+    """(dotted_name, leaf) pairs of a tree, in ``jax.tree`` order."""
+    if isinstance(tree, (dict, tuple)):
+        keys = sorted(tree) if isinstance(tree, dict) else range(len(tree))
         out = []
-        for k in sorted(tree):
+        for k in keys:
             out += tree_flatten_with_names(tree[k], f"{prefix}.{k}" if prefix
                                            else str(k))
         return out
@@ -36,6 +38,8 @@ def tree_unflatten(like, leaves):
     def build(node):
         if isinstance(node, dict):
             return {k: build(node[k]) for k in sorted(node)}
+        if isinstance(node, tuple):
+            return tuple(build(t) for t in node)
         return next(it)
 
     return build(like)

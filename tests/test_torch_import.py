@@ -26,6 +26,7 @@ def test_modules_and_chip_smoke_import_without_jax():
     mods = _modules()
     assert {"repro_torch.kernels.flash_attn", "repro_torch.kernels.split_quant",
             "repro_torch.kernels.mamba_scan", "repro_torch.configs.zamba2_1_2b",
+            "repro_torch.kernels.mlstm_scan", "repro_torch.configs.xlstm_1_3b",
             "repro_torch.core.constellation", "repro_torch.ckpt.checkpoint",
             "repro_torch.launch.constellation"} <= set(mods)
     code = ("import sys\n"

@@ -5,8 +5,8 @@ tests/test_torch_kernels_cuda.py``. Every test skips without a card."""
 import pytest
 import torch
 
-from repro_torch.kernels import (decode_attn, flash_attn, mamba_scan, ops,
-                                 split_quant)
+from repro_torch.kernels import (decode_attn, flash_attn, mamba_scan,
+                                 mlstm_scan, ops, split_quant)
 
 
 def require_cuda():
@@ -23,6 +23,8 @@ DECODE_CASES = [
     (4, 15, 5, 96, 64, [1, 96, 33, 50]),
     (8, 15, 5, 2048, 64, [1, 2048, 100, 513, 1024, 37, 2000, 777]),
     (8, 32, 32, 2048, 64, [1, 2048, 100, 513, 1024, 37, 2000, 777]),  # Zamba2
+    (3, 4, 4, 130, 16, [130, 64, 1]),             # smoke configs' heads, D=16
+    (2, 4, 2, 64, 16, [64, 17]),
 ]
 
 
@@ -34,6 +36,8 @@ DECODE_CASES = [
     (1, 8, 2, 150, 150, 32, True, 70),
     (2, 3, 1, 65, 130, 32, False, None),
     (1, 32, 32, 300, 300, 64, True, None),        # Zamba2's MHA, group 1
+    (2, 4, 4, 150, 150, 16, True, None),          # smoke configs' heads, D=16
+    (1, 4, 2, 100, 100, 16, True, 30),
 ])
 def test_flash_kernel_vs_plain(B, H, KV, Sq, Skv, D, causal, window, dtype):
     dev = require_cuda()
@@ -162,11 +166,10 @@ def test_mamba_kernel_rejects_what_it_does_not_take():
         mamba_scan.mamba_chunk_scan(x, dt, a_log, b, c)   # N=128: no room
 
 
-@pytest.mark.requires_cuda
-def test_zamba2_smoke_prefill_and_decode_on_the_card():
-    """The Zamba2 smoke LM in f32 through the three kernels against the
-    same model's plain path on the CPU (head dim 32: the flash kernel
-    takes 32 and 64, the smoke config has 16)."""
+def _smoke_on_card_vs_cpu(arch, n_layers=None):
+    """The smoke LM of ``arch`` in f32 on the card (through its kernels)
+    and on the CPU (their plain versions), from the same weights: the
+    prefill logits and one decode step's logits of each."""
     import dataclasses
 
     from repro_torch import configs
@@ -175,7 +178,9 @@ def test_zamba2_smoke_prefill_and_decode_on_the_card():
     from repro_torch.models.param import map_tree
 
     dev = require_cuda()
-    cfg = dataclasses.replace(configs.get_smoke("zamba2_1_2b"), d_head=32)
+    cfg = configs.get_smoke(arch)
+    if n_layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
     params = lm.init(cfg, torch.Generator().manual_seed(0))
     tokens = torch.randint(0, cfg.vocab, (2, 150),
                            generator=torch.Generator().manual_seed(1))
@@ -190,5 +195,104 @@ def test_zamba2_smoke_prefill_and_decode_on_the_card():
             torch.tensor([150, 150], device=d),
             ctx=Ctx(cfg=cfg, mode="decode", act_dtype=torch.float32))
         out[str(d)] = (logits.cpu(), step.cpu())
-    for got, want in zip(out[str(dev)], out["cpu"]):
+    return out[str(dev)], out["cpu"]
+
+
+@pytest.mark.requires_cuda
+def test_zamba2_smoke_prefill_and_decode_on_the_card():
+    """The Zamba2 smoke LM, unmodified (head dim 16), in f32 through the
+    three kernels against the same model's plain path on the CPU."""
+    n0 = flash_attn.flash_attention_fwd.launches
+    got, want = _smoke_on_card_vs_cpu("zamba2_1_2b")
+    assert flash_attn.flash_attention_fwd.launches > n0
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.requires_cuda
+def test_xlstm_smoke_prefill_and_decode_on_the_card():
+    """The two-unit xLSTM smoke LM in f32 through the mLSTM kernel (one
+    launch per mLSTM block) against its plain path on the CPU."""
+    n0 = mlstm_scan.mlstm_chunk_scan.launches
+    got, want = _smoke_on_card_vs_cpu("xlstm_1_3b", n_layers=8)
+    assert mlstm_scan.mlstm_chunk_scan.launches == n0 + 6
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("argv", [
+    ["--arch", "zamba2_1_2b", "--cut", "1"],
+    ["--arch", "xlstm_1_3b"],
+])
+def test_serve_cli_on_the_card(argv):
+    """The serving CLI on its default device, the card, with the smoke
+    configs as they are (Zamba2's head dim 16 through B2 and B3)."""
+    from repro_torch.launch import serve
+
+    require_cuda()
+    out = serve.main(argv + ["--requests", "3", "--new-tokens", "4"])
+    assert sorted(out) == [0, 1, 2] and all(len(t) == 4 for t in out.values())
+
+
+# (B, S, H, P, chunk): the reference's MLSTM_SWEEP, a P that is not a
+# multiple of the kernel's 32-column value tile, the xLSTM smoke width
+# P=64, and xLSTM-1.3B's full-width heads (H=4, P=1024) at S = 1, ragged
+# tails, two batch rows and the model's chunk 256 (the kernel takes 64).
+MLSTM_CASES = [
+    (1, 64, 2, 8, 16), (2, 100, 2, 16, 32), (1, 130, 1, 32, 64),
+    (1, 130, 1, 40, 64), (1, 300, 2, 64, 256),
+    (1, 1, 4, 1024, 256), (1, 100, 4, 1024, 256), (2, 257, 4, 1024, 256),
+    (1, 512, 4, 1024, 256),
+]
+
+
+def _mlstm_inputs(B, S, H, P, dtype, dev, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    rnd = lambda *s: torch.randn(s, generator=g, device=dev)
+    q, k, v = (rnd(B, S, H, P).to(dtype) for _ in range(3))
+    return q, k, v, rnd(B, S, H), rnd(B, S, H) + 1.0
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,H,P,chunk", MLSTM_CASES)
+def test_mlstm_kernel_vs_plain(B, S, H, P, chunk, dtype):
+    dev = require_cuda()
+    args = _mlstm_inputs(B, S, H, P, dtype, dev)
+    n0 = mlstm_scan.mlstm_chunk_scan.launches
+    h, (C, n, m) = mlstm_scan.mlstm_chunk_scan(*args, chunk=chunk)
+    hp, (Cp, np_, mp) = mlstm_scan.mlstm_chunk_scan_plain(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    assert mlstm_scan.mlstm_chunk_scan.launches == n0 + 1
+    assert h.dtype == dtype and n.shape == (B, H, P, 1)
+    # h: f32 at the reference's mLSTM tolerance, bf16 one ulp after f32
+    # sums taken in another order; the f32 state at the f32 tolerance
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
+    torch.testing.assert_close(h.float(), hp.float(), atol=tol, rtol=tol)
+    for got, want in ((C, Cp), (n[..., 0], np_), (m, mp)):
         torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.requires_cuda
+def test_mlstm_op_on_the_card_squeezes_n_and_counts():
+    dev = require_cuda()
+    args = _mlstm_inputs(1, 70, 2, 64, torch.bfloat16, dev)
+    n0 = mlstm_scan.mlstm_chunk_scan.launches
+    h, (C, n, m) = ops.mlstm_scan(*args)
+    assert mlstm_scan.mlstm_chunk_scan.launches == n0 + 1
+    assert n.shape == (1, 2, 64) and C.shape == (1, 2, 64, 64)
+
+
+@pytest.mark.requires_cuda
+def test_mlstm_kernel_rejects_what_it_does_not_take():
+    dev = require_cuda()
+    q, k, v, i_pre, f_pre = _mlstm_inputs(1, 40, 2, 64, torch.float32, dev)
+    with pytest.raises(ValueError, match="dtypes"):
+        mlstm_scan.mlstm_chunk_scan(q, k, v, i_pre.bfloat16(), f_pre)
+    with pytest.raises(ValueError, match="shapes"):
+        mlstm_scan.mlstm_chunk_scan(q, k[:, :39], v, i_pre, f_pre)
+    big = torch.zeros(1, 4, 1, 2048, device=dev)
+    with pytest.raises(RuntimeError, match="launch failed"):   # C too wide
+        mlstm_scan.mlstm_chunk_scan(big, big, big, i_pre[:, :4, :1],
+                                    f_pre[:, :4, :1])

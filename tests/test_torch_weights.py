@@ -1,6 +1,6 @@
 """Parameter trees: the converter between the two packages is bitwise,
-the port's tree has the reference's shapes at full SmolLM-360M and
-Zamba2-1.2B width (shapes only, nothing full-width is allocated), and
+the port's tree has the reference's shapes at full SmolLM-360M,
+Zamba2-1.2B and xLSTM-1.3B width (shapes only, nothing full-width is allocated), and
 the seeded init follows the reference's rules."""
 import jax
 import numpy as np
@@ -47,9 +47,16 @@ def test_converter_round_trip_is_bitwise_zamba2():
     _assert_round_trip_bitwise("zamba2_1_2b")
 
 
+def test_converter_round_trip_is_bitwise_xlstm():
+    """The xLSTM tree: stacked mlstm and slstm blocks, all dict leaves."""
+    _assert_round_trip_bitwise("xlstm_1_3b")
+
+
 # Parameters at full width, from the reference's own tree (SmolLM-360M
-# with its tied head; Zamba2-1.2B with its one shared attention block).
-FULL_WIDTH_PARAMS = {"smollm_360m": 361_821_120, "zamba2_1_2b": 977_313_408}
+# with its tied head; Zamba2-1.2B with its one shared attention block;
+# xLSTM-1.3B with its untied head).
+FULL_WIDTH_PARAMS = {"smollm_360m": 361_821_120, "zamba2_1_2b": 977_313_408,
+                     "xlstm_1_3b": 1_817_495_888}
 
 
 @pytest.mark.parametrize("name", sorted(FULL_WIDTH_PARAMS))
