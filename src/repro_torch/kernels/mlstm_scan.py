@@ -10,8 +10,10 @@ and the scalar stabilizer m carry from chunk to chunk. The chunk's row
 stabilizers equal the sequential ones exactly, so the chunkwise form is
 exact up to rounding for any chunk length. On the H100 the kernel's
 operations bound it (xLSTM-1.3B's P = 1024 makes the two products per
-chunk large); as written it runs f32 FMAs fed from shared memory. The
-design is in the source's header, its times in PERF.md.
+chunk large). In bf16 it runs three launches with every product on the
+tensor cores (one q.k^T per chunk, C held in registers); in f32 one
+launch of f32 FMAs. The design is in the source's header, its times in
+PERF.md.
 
 :func:`mlstm_chunk_scan` launches the kernel on CUDA tensors only and
 counts its launches in ``mlstm_chunk_scan.launches``; the dispatch by
@@ -29,6 +31,10 @@ from repro_torch.kernels import _build
 NEG_INF = -1e30
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 L_MAX = 64                # the kernel's longest chunk (L_MAX in the source)
+# Scratch of the bf16 path, 32-bit words per (batch, head, chunk): W's
+# tensor-core fragments and the chunk's per-position scalars (REC in the
+# source).
+SCRATCH_WORDS = 5440
 
 
 def mlstm_chunk_scan_plain(q, k, v, i_pre, f_pre, *, chunk: int = 256):
@@ -94,8 +100,10 @@ def mlstm_chunk_scan_plain(q, k, v, i_pre, f_pre, *, chunk: int = 256):
 def mlstm_chunk_scan(q, k, v, i_pre, f_pre, *, chunk: int = 256):
     """q, k, v: (B, S, H, P) in f32 or bf16 (one dtype); i_pre, f_pre:
     (B, S, H) f32; all on one CUDA device. The kernel's chunk is
-    ``min(chunk, S, 64)``. A P too wide for one head's value tile of C
-    in shared memory (P > 1024 or so) fails at launch and raises.
+    ``min(chunk, S, 64)``; its three stages count as one launch. bf16
+    takes P <= 1024, a multiple of 8 (the tensor-core tiles). In f32 a P
+    too wide for one head's value tile of C in shared memory (P > 1024 or
+    so) fails at launch and raises.
     Returns (h (B, S, H, P) in q's dtype, (C (B, H, P, P), n (B, H, P, 1),
     m (B, H)) f32), the Pallas kernel's layout."""
     B, S, H, P = q.shape
@@ -115,18 +123,31 @@ def mlstm_chunk_scan(q, k, v, i_pre, f_pre, *, chunk: int = 256):
                          f"{tuple(i_pre.shape)}, f_pre {tuple(f_pre.shape)}")
     if chunk < 1:
         raise ValueError(f"chunk must be >= 1, got {chunk}")
+    if q.dtype == torch.bfloat16 and (P > 1024 or P % 8):
+        raise ValueError(f"bf16 head width P={P}: the kernel takes P <= 1024, "
+                         f"a multiple of 8")
+    if q.dtype == torch.bfloat16 and S * H * P >= 2 ** 31:
+        raise ValueError(f"S*H*P = {S * H * P}: the bf16 kernel takes fewer "
+                         f"than 2**31 elements per batch row")
     q, k, v, i_pre, f_pre = (t.contiguous() for t in (q, k, v, i_pre, f_pre))
+    if q.dtype == torch.bfloat16 and any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("mlstm_chunk_scan needs 16-byte aligned bf16 inputs")
     h = torch.empty_like(q)
     C = torch.empty((B, H, P, P), dtype=torch.float32, device=dev)
     n = torch.empty((B, H, P, 1), dtype=torch.float32, device=dev)
     m = torch.empty((B, H), dtype=torch.float32, device=dev)
     if S == 0:
         return h, (C.zero_(), n.zero_(), m.fill_(NEG_INF))
+    L = min(chunk, S, L_MAX)
+    # the tensor-core path's per-chunk records (bf16 only)
+    scratch = torch.empty(B * H * -(-S // L) * SCRATCH_WORDS
+                          if q.dtype == torch.bfloat16 else 0,
+                          dtype=torch.float32, device=dev)
     fn = _build.load("mlstm_scan").mlstm_scan
     with torch.cuda.device(dev):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), i_pre.data_ptr(),
                  f_pre.data_ptr(), h.data_ptr(), C.data_ptr(), n.data_ptr(),
-                 m.data_ptr(), B, S, H, P, min(chunk, S, L_MAX),
+                 m.data_ptr(), scratch.data_ptr(), B, S, H, P, L,
                  1.0 / math.sqrt(P), DTYPES[q.dtype],
                  torch.cuda.current_stream().cuda_stream)
     if err:

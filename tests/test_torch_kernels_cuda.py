@@ -38,6 +38,16 @@ DECODE_CASES = [
     (1, 32, 32, 300, 300, 64, True, None),        # Zamba2's MHA, group 1
     (2, 4, 4, 150, 150, 16, True, None),          # smoke configs' heads, D=16
     (1, 4, 2, 100, 100, 16, True, 30),
+    # the serving paths' prefill shapes: SmolLM at the longest served
+    # prompt (498) and at 512, Zamba2's MHA at 498
+    (1, 15, 5, 498, 498, 64, True, None),
+    (1, 15, 5, 512, 512, 64, True, None),
+    (1, 32, 32, 498, 498, 64, True, None),
+    # Sq not a multiple of the 64-row q tile, Sq != Skv both ways
+    # (top-left-aligned causal band), a window crossing tile edges
+    (2, 4, 2, 100, 164, 64, True, None),
+    (1, 4, 2, 150, 70, 32, True, None),
+    (1, 6, 3, 201, 201, 64, True, 90),
 ])
 def test_flash_kernel_vs_plain(B, H, KV, Sq, Skv, D, causal, window, dtype):
     dev = require_cuda()
@@ -244,6 +254,12 @@ MLSTM_CASES = [
     (1, 130, 1, 40, 64), (1, 300, 2, 64, 256),
     (1, 1, 4, 1024, 256), (1, 100, 4, 1024, 256), (2, 257, 4, 1024, 256),
     (1, 512, 4, 1024, 256),
+    # one position, a chunk shorter than one 16-row mma tile (S = 15) and
+    # one reaching just into a second (S = 17), P = 40 (a tensor-core tile
+    # of 48 keys, zero-padded) with two batch rows, and xLSTM's longest
+    # served prompt (498, ragged last chunk)
+    (1, 1, 2, 64, 256), (1, 15, 4, 1024, 256), (1, 17, 4, 1024, 256),
+    (2, 130, 2, 40, 64), (1, 498, 4, 1024, 256),
 ]
 
 
@@ -296,3 +312,27 @@ def test_mlstm_kernel_rejects_what_it_does_not_take():
     with pytest.raises(RuntimeError, match="launch failed"):   # C too wide
         mlstm_scan.mlstm_chunk_scan(big, big, big, i_pre[:, :4, :1],
                                     f_pre[:, :4, :1])
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mlstm_kernel_counts_one_launch_per_call(dtype):
+    """The bf16 path's three stages (and f32's one kernel) count once."""
+    dev = require_cuda()
+    args = _mlstm_inputs(1, 130, 4, 1024, dtype, dev)
+    n0 = mlstm_scan.mlstm_chunk_scan.launches
+    for _ in range(3):
+        mlstm_scan.mlstm_chunk_scan(*args)
+    torch.cuda.synchronize()
+    assert mlstm_scan.mlstm_chunk_scan.launches == n0 + 3
+
+
+@pytest.mark.requires_cuda
+def test_mlstm_bf16_rejects_widths_off_the_tensor_core_tiles():
+    dev = require_cuda()
+    for P in (12, 1032):
+        args = _mlstm_inputs(1, 20, 1, P, torch.bfloat16, dev)
+        n0 = mlstm_scan.mlstm_chunk_scan.launches
+        with pytest.raises(ValueError, match="head width"):
+            mlstm_scan.mlstm_chunk_scan(*args)
+        assert mlstm_scan.mlstm_chunk_scan.launches == n0
