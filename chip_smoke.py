@@ -15,7 +15,9 @@ Phases, each fatal on failure:
      chunkwise scan against its plain version at xLSTM-1.3B's (H=4,
      P=1024), and the SL boundary quantizer against its plain version
      bit for bit at the training path's shapes, with each kernel's time,
-     bound, plain time and library yardstick;
+     bound, plain time and library yardstick (and their ratios), the
+     device time of each stage of the two scans in bf16, and the split
+     count of flash decode, whose two runs must agree bit for bit;
   4. full-width SmolLM-360M split-model serving (cut at unit 16) through
      both attention kernels: launch counts, split == unsplit greedy
      tokens, one decode step's logits on the kernel path against the
@@ -196,8 +198,11 @@ def check_decode(dtype, gen, flush, H=H, KV=KV, D=D):
                          (DECODE_B, KV, DECODE_S, D))]
     lengths = torch.tensor(DECODE_LENS, dtype=torch.int32, device=dev)
     got = decode_attn.decode_attention(q, k, v, lengths)
+    again = decode_attn.decode_attention(q, k, v, lengths)
     want = decode_attn.decode_attention_plain(q, k, v, lengths)
     torch.cuda.synchronize()
+    check(torch.equal(got, again), f"decode {dtype} H={H} D={D}: two runs "
+          f"differ (the split merge must be deterministic)")
     err = (got.float() - want.float()).abs().max().item()
     torch.testing.assert_close(got.float(), want.float(), atol=TOL[dtype],
                                rtol=TOL[dtype])
@@ -211,6 +216,8 @@ def check_decode(dtype, gen, flush, H=H, KV=KV, D=D):
     return dict(
         shape=f"decode B={DECODE_B} H={H} KV={KV} s_max={DECODE_S} D={D} "
               f"lengths={DECODE_LENS} {str(dtype)[6:]}", max_abs_err=err,
+        splits=decode_attn.n_splits(DECODE_S, D, dtype),
+        split_rows=decode_attn.split_rows(D, dtype),
         ms=time_ms(lambda: decode_attn.decode_attention(q, k, v, lengths),
                    flush=flush),
         plain_ms=time_ms(lambda: decode_attn.decode_attention_plain(
@@ -265,7 +272,8 @@ def mamba_work(B, S, H, P, N, chunk, elt):
 
 
 def check_mamba(dtype, B, S, gen, flush):
-    """The SSD scan kernel against its plain version at Zamba2's heads."""
+    """The SSD scan kernel against its plain version at Zamba2's heads; in
+    bf16 its three launches are timed by name (``stages``)."""
     dev = torch.device("cuda")
     Hm, P, N = MAMBA_H, MAMBA_P, MAMBA_N
     rnd = lambda *shape: torch.randn(shape, generator=gen, device=dev)
@@ -284,13 +292,14 @@ def check_mamba(dtype, B, S, gen, flush):
               (h - hp).abs().max().item())
     nbytes, nops = mamba_work(B, S, Hm, P, N, MAMBA_CHUNK, x.element_size())
     b_ms, b_by = bound(nbytes, nops, dtype)
+    run = lambda: mamba_scan.mamba_chunk_scan(*args, chunk=MAMBA_CHUNK)
     return dict(
         shape=f"scan B={B} S={S} H={Hm} P={P} N={N} chunk {MAMBA_CHUNK} "
               f"{str(dtype)[6:]}", max_abs_err=err,
-        ms=time_ms(lambda: mamba_scan.mamba_chunk_scan(
-            *args, chunk=MAMBA_CHUNK), flush=flush),
+        ms=time_ms(run, flush=flush),
         plain_ms=time_ms(lambda: mamba_scan.mamba_chunk_scan_plain(
             *args, chunk=MAMBA_CHUNK), flush=flush),
+        stages=device_ms(run, flush) if dtype == torch.bfloat16 else None,
         library_ms=None, bound_ms=b_ms, bound_by=b_by,
         bytes=nbytes, ops=nops)
 
@@ -636,9 +645,11 @@ def profile_calls(fn, n, what, label):
 
 
 # The functions in csrc/*.cu, as the profiler names them.
-OUR_KERNELS = ("flash_fwd_mma_kernel", "flash_fwd_kernel", "decode_kernel",
-               "ssd_kernel", "mlstm_chunk_kernel", "mlstm_norm_kernel",
-               "mlstm_value_kernel", "mlstm_fma_kernel", "quant_kernel")
+OUR_KERNELS = ("flash_fwd_mma_kernel", "flash_fwd_kernel",
+               "decode_split_kernel", "ssd_kernel", "ssd_chunk_kernel",
+               "ssd_state_kernel", "ssd_out_kernel", "mlstm_chunk_kernel",
+               "mlstm_norm_kernel", "mlstm_value_kernel", "mlstm_fma_kernel",
+               "quant_kernel")
 
 
 def profile_decode(engine, label, steps=5):
@@ -907,15 +918,22 @@ def main() -> int:
             lib = ("none" if r["library_ms"] is None
                    else f"{r['library_ms']:.4f}")
             ratios = ""
-            if name in ("flash_attn_fwd", "mlstm_scan"):
+            if name != "split_quant":
                 vs_lib = ("n/a" if r["library_ms"] is None
                           else f"{r['ms'] / r['library_ms']:.2f}x")
                 ratios = (f" kernel/library {vs_lib} kernel/bound "
                           f"{r['ms'] / r['bound_ms']:.1f}x")
+            if name == "decode_attn":
+                ratios += (f" splits {r['splits']} of {r['split_rows']} rows "
+                           f"per (KV head, batch row)")
             print(f"  {name} {r['shape']}: kernel {r['ms']:.4f} plain "
                   f"{r['plain_ms']:.4f} library {lib} bound "
                   f"{r['bound_ms']:.4f} ({r['bound_by']}) max_abs_err "
                   f"{r['max_abs_err']:.3e}{ratios}")
+            if name == "mamba_scan" and r["stages"]:
+                print("    device time by kernel (torch.profiler, 20 calls): "
+                      + "; ".join(f"{k[:40]} {c:g}x {ms:.4f} ms"
+                                  for k, c, ms in r["stages"]))
             if name == "mlstm_scan":
                 stages = "; ".join(f"{k[:40]} {c:g}x {ms:.4f} ms"
                                    for k, c, ms in r["stages"] or [])

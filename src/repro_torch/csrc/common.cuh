@@ -1,5 +1,6 @@
-// Small device helpers shared by the attention kernels: f32 <-> storage
-// type conversion and unpacking of one 16-byte load into f32 lanes.
+// Small device helpers shared by the kernels: f32 <-> storage type
+// conversion, 2^x on the SFU, and unpacking of one 16-byte load into f32
+// lanes.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -9,6 +10,14 @@
 namespace repro {
 
 constexpr float kNegBig = -1e30f;   // the reference's NEG_INF (finite)
+constexpr float kLog2e = 1.4426950408889634f;
+
+// 2^x on the SFU (MUFU.EX2, ~2 ulp; 0 for x = -inf or below -126)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }

@@ -200,13 +200,6 @@ constexpr int NRND = 2;            // rounds (NGRP K/V tiles each) in the ring
 constexpr int NSLOT = NRND * NGRP;
 using bf16 = __nv_bfloat16;
 
-// 2^x on the SFU (MUFU.EX2, ~2 ulp; 0 for x = -inf or below -126)
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
 // dynamic shared memory of the bf16 kernel: Q and the ring of K/V tiles
 constexpr int mma_smem(int D) { return (BQ + 2 * NSLOT * BK) * (D + 8) * 2; }
 
@@ -336,7 +329,7 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
       mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
       const float mn = fmaxf(m[r], mx[r]);        // finite: m >= -1e30
-      const float alpha = ex2(m[r] - mn);
+      const float alpha = repro::ex2(m[r] - mn);
       m[r] = mn;
       l[r] *= alpha;
 #pragma unroll
@@ -350,7 +343,7 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const float x = s[jj][e];
-        s[jj][e] = (EDGE && x == -INFINITY) ? 0.f : ex2(x - m[e >> 1]);
+        s[jj][e] = (EDGE && x == -INFINITY) ? 0.f : repro::ex2(x - m[e >> 1]);
         l[e >> 1] += s[jj][e];
       }
     }
@@ -429,8 +422,8 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const float mo = x[r * 128], mn = fmaxf(m[r], mo);
-      fa[r] = ex2(m[r] - mn);
-      fo[r] = ex2(mo - mn);
+      fa[r] = repro::ex2(m[r] - mn);
+      fo[r] = repro::ex2(mo - mn);
       m[r] = mn;
       l[r] = l[r] * fa[r] + x[(2 + r) * 128] * fo[r];
     }

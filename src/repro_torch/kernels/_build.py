@@ -28,9 +28,9 @@ P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C signature of each source's entry point (all return a cudaError_t).
 ENTRY = {
     "flash_attn_fwd": [P, P, P, P, I, I, I, I, I, I, I, I, F, I, P],
-    "decode_attn": [P, P, P, P, P, I, I, I, I, I, F, I, P],
+    "decode_attn": [P, P, P, P, P, P, I, I, I, I, I, I, F, I, P],
     "split_quant": [P, P, P, I, I, I, I, P],
-    "mamba_scan": [P, P, P, P, P, P, P, I, I, I, I, I, I, I, P],
+    "mamba_scan": [P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, P],
     "mlstm_scan": [P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, F, I, P],
 }
 

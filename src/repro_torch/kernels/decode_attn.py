@@ -3,10 +3,13 @@
 
 Replaces the Pallas TPU kernel ``repro/kernels/decode_attn.py``
 (``decode_attention``, ``pallas_call`` at line 88). On the H100 it is
-bounded by reading the valid K and V cache rows once (3.35 TB/s); one
-block per (KV head, batch row) serves every query head of the group, so
-each row is read once per KV head rather than once per query head. The
-design is in the source's header.
+bounded by reading the valid K and V cache rows once (3.35 TB/s). It is
+split-KV flash-decoding: one block per (split of the cache rows, KV
+head, batch row) serves every query head of the group, so each row is
+read once per KV head rather than once per query head, and writes a
+partial softmax record (m, l, acc) per query head; the last block of
+each (KV head, batch row) to finish merges the records in split order,
+so the result is deterministic. The design is in the source's header.
 
 :func:`decode_attention` launches the kernel on CUDA tensors only and
 counts its launches in ``decode_attention.launches``; the dispatch by
@@ -24,6 +27,28 @@ NEG_INF = -1e30
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (16, 32, 64, 128)
 MAX_GROUP = 8                    # query heads per KV head (MAXG in the source)
+SPLIT_BYTES = 32768              # most bytes of K (and of V) per block
+SPLIT_ROWS = 256                 # most cache rows per block
+
+
+def split_rows(D, dtype):
+    """Cache rows per block: 256, or fewer where 256 rows pass 32 KB of K
+    (two passes of the block's 256 threads x 4 loads of 16 bytes); 256
+    rows at bf16, D = 64."""
+    return min(SPLIT_ROWS,
+               SPLIT_BYTES // (D * (2 if dtype == torch.bfloat16 else 4)))
+
+
+def n_splits(S, D, dtype):
+    """Blocks per (KV head, batch row) on a cache of S rows."""
+    return -(-S // split_rows(D, dtype))
+
+
+def scratch_words(B, H, KV, S, D, dtype):
+    """32-bit words of scratch: the partial records, (m, l) and acc per
+    split, batch row and query head, then a counter per (batch row, KV
+    head)."""
+    return B * H * n_splits(S, D, dtype) * (D + 2) + B * KV
 
 
 def decode_attention_plain(q, k, v, lengths):
@@ -68,10 +93,15 @@ def decode_attention(q, k, v, lengths):
     o = torch.empty_like(q)
     if o.numel() == 0:
         return o
+    if S == 0:                     # no cache row: 0, as the reference's kernel
+        return o.zero_()
+    scratch = torch.empty(scratch_words(B, H, KV, S, D, q.dtype),
+                          dtype=torch.float32, device=dev)
     fn = _build.load("decode_attn").decode_attn
     with torch.cuda.device(dev):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
-                 o.data_ptr(), B, H, KV, S, D, 1.0 / math.sqrt(D),
+                 o.data_ptr(), scratch.data_ptr(), B, H, KV, S, D,
+                 split_rows(D, q.dtype), 1.0 / math.sqrt(D),
                  DTYPES[q.dtype], torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"decode_attn launch failed: CUDA error {err}")

@@ -5,14 +5,20 @@ Replaces the Pallas TPU kernel ``repro/kernels/mamba_scan.py``
 (``mamba_chunk_scan``, ``pallas_call`` at line 101). Per (batch, head)
 the sequence is cut into chunks; within a chunk the scan is an L x L
 decay-masked product plus the inter-chunk term of the carried P x N f32
-state, which is then updated. On the H100 its bytes bound it (at the
-bf16 tensor-core rate the operations take less time); as written it
-runs f32 FMAs fed from shared memory, far from that bound. The design
-is in the source's header, its times in PERF.md.
+state, which is then updated. On the H100 its bytes bound it (2.90 us at
+S=512 bf16 for Zamba2's heads; at the bf16 tensor-core rate the
+operations take less). In bf16 it runs the SSD state-passing form in
+three launches: c.b^T once per chunk for all heads and each chunk's
+contribution to the state, in parallel over chunks; an elementwise state
+pass over the chunks; the chunk outputs, in parallel. Every product is
+on the tensor cores, the f32 operand split into two bf16 halves. In f32
+one launch of f32 FMAs walks the chunks. The design is in the source's
+header, its times in PERF.md.
 
 :func:`mamba_chunk_scan` launches the kernel on CUDA tensors only and
-counts its launches in ``mamba_chunk_scan.launches``; the dispatch by
-device is in :mod:`repro_torch.kernels.ops`.
+counts its launches in ``mamba_chunk_scan.launches`` (the bf16 path's
+three stages count as one); the dispatch by device is in
+:mod:`repro_torch.kernels.ops`.
 """
 from __future__ import annotations
 
@@ -23,6 +29,16 @@ from repro_torch.kernels import _build
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 L_MAX = 128               # longest chunk the kernel's thread mapping covers
+N_MAX_BF16 = 128          # widest state of the tensor-core path (N_TC)
+
+
+def scratch_words(B, S, H, P, N, L):
+    """f32 words of the bf16 path's scratch: per (batch, chunk) c.b^T
+    (L rounded up to 16, squared), each head's P x N state contribution
+    (then the state entering the chunk) and its decay."""
+    nc = -(-S // L)
+    lp = -(-L // 16) * 16
+    return B * nc * (lp * lp + H * P * N + H)
 
 
 def mamba_chunk_scan_plain(x, dt, a_log, b, c, *, chunk: int = 128):
@@ -67,10 +83,10 @@ def mamba_chunk_scan_plain(x, dt, a_log, b, c, *, chunk: int = 128):
 def mamba_chunk_scan(x, dt, a_log, b, c, *, chunk: int = 128):
     """x: (B, S, H, P) and b, c: (B, S, N) in f32 or bf16 (one dtype);
     dt: (B, S, H) and a_log: (H,) in f32; all on one CUDA device.
-    ``min(chunk, S)`` must be at most 128, and N small enough for the
-    chunk's tiles to fit shared memory (N = 64 at chunk 128; a launch
-    that does not fit raises). Returns (y (B, S, H, P) in x's
-    dtype, h_final (B, H, P, N) f32)."""
+    ``min(chunk, S)`` must be at most 128. bf16 takes N <= 128; in f32 an
+    N too large for the chunk's tiles in shared memory (above 64 at
+    chunk 128) fails at launch and raises. Returns (y (B, S, H, P) in
+    x's dtype, h_final (B, H, P, N) f32)."""
     B, S, H, P = x.shape
     N = b.shape[-1]
     dev = x.device
@@ -89,16 +105,23 @@ def mamba_chunk_scan(x, dt, a_log, b, c, *, chunk: int = 128):
     L = min(chunk, S)
     if S and not 1 <= L <= L_MAX:
         raise ValueError(f"chunk length {L} not in [1, {L_MAX}]")
+    if x.dtype == torch.bfloat16 and N > N_MAX_BF16:
+        raise ValueError(f"bf16 state width N={N}: the kernel takes N <= "
+                         f"{N_MAX_BF16}")
     x, dt, a_log, b, c = (t.contiguous() for t in (x, dt, a_log, b, c))
     y = torch.empty_like(x)
     h = torch.empty((B, H, P, N), dtype=torch.float32, device=dev)
     if S == 0:
         return y, h.zero_()
+    scratch = torch.empty(scratch_words(B, S, H, P, N, L)
+                          if x.dtype == torch.bfloat16 else 0,
+                          dtype=torch.float32, device=dev)
     fn = _build.load("mamba_scan").mamba_scan
     with torch.cuda.device(dev):
         err = fn(x.data_ptr(), dt.data_ptr(), a_log.data_ptr(), b.data_ptr(),
-                 c.data_ptr(), y.data_ptr(), h.data_ptr(), B, S, H, P, N, L,
-                 DTYPES[x.dtype], torch.cuda.current_stream().cuda_stream)
+                 c.data_ptr(), y.data_ptr(), h.data_ptr(), scratch.data_ptr(),
+                 B, S, H, P, N, L, DTYPES[x.dtype],
+                 torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"mamba_scan launch failed: CUDA error {err}")
     mamba_chunk_scan.launches += 1

@@ -76,6 +76,47 @@ def test_decode_kernel_vs_plain(B, H, KV, S, D, lens, dtype):
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
 
 
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("H,KV,D", [(15, 5, 64), (32, 32, 64), (4, 4, 16),
+                                    (8, 2, 128), (6, 2, 32)])
+def test_decode_kernel_lengths_straddling_split_edges(H, KV, D, dtype):
+    """Lengths inside the first split, on its edge, one past it, across
+    several splits, and the whole cache, with empty splits after them."""
+    dev = require_cuda()
+    r = decode_attn.split_rows(D, dtype)
+    S = 4 * r + 3
+    lens = [r // 2 + 1, r, r + 1, 3 * r, 3 * r - 7, 1, S]
+    B = len(lens)
+    g = torch.Generator(device=dev).manual_seed(1)
+    q, k, v = [torch.randn(s, generator=g, device=dev).to(dtype)
+               for s in ((B, H, 1, D), (B, KV, S, D), (B, KV, S, D))]
+    lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+    n0 = decode_attn.decode_attention.launches
+    got = decode_attn.decode_attention(q, k, v, lengths)
+    want = decode_attn.decode_attention_plain(q, k, v, lengths)
+    torch.cuda.synchronize()
+    assert decode_attn.decode_attention.launches == n0 + 1
+    tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_kernel_is_deterministic(dtype):
+    """The split records merge in a fixed order: two runs, same bits."""
+    dev = require_cuda()
+    B, H, KV, S, D, lens = DECODE_CASES[3]
+    g = torch.Generator(device=dev).manual_seed(2)
+    q, k, v = [torch.randn(s, generator=g, device=dev).to(dtype)
+               for s in ((B, H, 1, D), (B, KV, S, D), (B, KV, S, D))]
+    lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+    first = decode_attn.decode_attention(q, k, v, lengths)
+    second = decode_attn.decode_attention(q, k, v, lengths)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
 def _quant_input(rows, d, dtype, dev, seed=0):
     g = torch.Generator(device=dev).manual_seed(seed)
     x = torch.randn((rows, d), generator=g, device=dev) * 7.3
@@ -174,6 +215,50 @@ def test_mamba_kernel_rejects_what_it_does_not_take():
                                                              device=dev)
     with pytest.raises(RuntimeError, match="launch failed"):
         mamba_scan.mamba_chunk_scan(x, dt, a_log, b, c)   # N=128: no room
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mamba_kernel_counts_one_launch_per_call(dtype):
+    """The bf16 path's three stages (and f32's one kernel) count once, and
+    two runs give the same bits."""
+    dev = require_cuda()
+    args = _mamba_inputs(1, 300, 64, 64, 64, dtype, dev)
+    n0 = mamba_scan.mamba_chunk_scan.launches
+    outs = [mamba_scan.mamba_chunk_scan(*args) for _ in range(3)]
+    torch.cuda.synchronize()
+    assert mamba_scan.mamba_chunk_scan.launches == n0 + 3
+    assert torch.equal(outs[0][0], outs[2][0])
+    assert torch.equal(outs[0][1], outs[2][1])
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("B,S,H,P,N,chunk", [(1, 300, 2, 64, 128, 128),
+                                             (2, 77, 3, 72, 24, 16),
+                                             (1, 50, 2, 70, 5, 32),
+                                             (1, 45, 2, 9, 7, 32)])
+def test_mamba_bf16_takes_wide_states_and_odd_tiles(B, S, H, P, N, chunk):
+    """The tensor-core path at N = 128 (the f32 kernel's shared memory
+    does not hold it at chunk 128), P past one 64-row tile, N off the
+    16-column tile, and P and N that are not multiples of 8 (element
+    loads instead of 16-byte copies; odd P: element stores)."""
+    dev = require_cuda()
+    args = _mamba_inputs(B, S, H, P, N, torch.bfloat16, dev)
+    y, h = mamba_scan.mamba_chunk_scan(*args, chunk=chunk)
+    yp, hp = mamba_scan.mamba_chunk_scan_plain(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(y.float(), yp.float(), atol=2e-2, rtol=2e-2)
+    torch.testing.assert_close(h, hp, atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.requires_cuda
+def test_mamba_bf16_rejects_states_past_its_tiles():
+    dev = require_cuda()
+    args = _mamba_inputs(1, 40, 2, 64, 136, torch.bfloat16, dev)
+    n0 = mamba_scan.mamba_chunk_scan.launches
+    with pytest.raises(ValueError, match="state width"):
+        mamba_scan.mamba_chunk_scan(*args)
+    assert mamba_scan.mamba_chunk_scan.launches == n0
 
 
 def _smoke_on_card_vs_cpu(arch, n_layers=None):
