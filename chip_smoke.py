@@ -13,21 +13,26 @@ Phases, each fatal on failure:
      at head dim 16 (the smoke configs' heads), the Mamba-2 chunked scan
      against its plain version at Zamba2's full-width heads, the mLSTM
      chunkwise scan against its plain version at xLSTM-1.3B's (H=4,
-     P=1024), and the SL boundary quantizer against its plain version
-     bit for bit at the training path's shapes, with each kernel's time,
-     bound, plain time and library yardstick (and their ratios), the
-     device time of each stage of the two scans in bf16, and the split
-     count of flash decode, whose two runs must agree bit for bit;
+     P=1024), and both entries of the SL boundary quantizer (codes and
+     scales; the fused quantize-dequantize) against their plain versions
+     bit for bit at the training path's shapes, as row-major rows and as
+     the channel-major NHWC view of NCHW memory that the conv stages hand
+     over, with each kernel's time, bound, plain time and library
+     yardstick (and their ratios), the quantizer's device time beside
+     that of a copy of its input, the device time of each stage of the
+     two scans in bf16, and the split count of flash decode, whose two
+     runs must agree bit for bit;
   4. full-width SmolLM-360M split-model serving (cut at unit 16) through
      both attention kernels: launch counts, split == unsplit greedy
      tokens, one decode step's logits on the kernel path against the
      plain path;
   5. the paper's training loop: a 25-satellite Table-I ring training
      full-width ResNet-18 (224 px, cut l2, batch 8, SGD) with the int8
-     boundary through the quantizer kernel (2 launches per SL step),
-     finite losses, the metered boundary payload, one step's loss on the
-     kernel path against the plain path, step times and a profile; then
-     one autoencoder pass at 224 px;
+     boundary through the fused quantizer (exactly 2 launches per SL
+     step, no copy: one kernel per crossing), finite losses, the metered
+     boundary payload, one step's loss on the kernel path against the
+     plain path, step times and a profile; then one autoencoder pass at
+     224 px;
   6. full-width Zamba2-1.2B split-model serving (cut at unit 3) through
      the scan kernel (prefill) and both attention kernels (the shared
      block): launch counts, split == unsplit greedy tokens, one prefill's
@@ -91,6 +96,12 @@ DECODE_LENS = [1, 2048, 100, 513, 1024, 37, 2000, 777]
 # multiple of the 16-byte vector. Every input has all-zero rows and .5 ties.
 QUANT_SHAPES = [(6272, 128, torch.float32), (6272, 128, torch.bfloat16),
                 (392, 3, torch.float32), (1000, 130, torch.float32)]
+# The same boundaries as the training path hands them over on the card,
+# an NHWC view of NCHW memory (channel-major rows): ResNet-18's l2 z and
+# dz, and the autoencoder latent.
+QUANT_CM_SHAPES = [((8, 28, 28, 128), torch.float32),
+                   ((8, 28, 28, 128), torch.bfloat16),
+                   ((8, 7, 7, 3), torch.float32)]
 # The Mamba-2 scan at Zamba2-1.2B's full-width heads (H=64, P=N=64,
 # chunk 128): (B, S), S = 1 and ragged last chunks included.
 MAMBA_H, MAMBA_P, MAMBA_N, MAMBA_CHUNK = 64, 64, 64, 128
@@ -235,27 +246,53 @@ def quant_input(rows, d, dtype, gen):
     return x.to(dtype)
 
 
-def check_quant(rows, d, dtype, gen, flush):
-    """The quantizer kernel against its plain version, bit for bit."""
-    x = quant_input(rows, d, dtype, gen)
-    q, s = split_quant.quantize_rows(x)
-    qp, sp = split_quant.quantize_rows_plain(x)
+def quant_cases(gen):
+    """(label, x) for phase 3: QUANT_SHAPES as row-major rows, then
+    QUANT_CM_SHAPES as channel-major rows (the NHWC view of NCHW memory)."""
+    for rows, d, dtype in QUANT_SHAPES:
+        yield (f"rows={rows} d={d} {str(dtype)[6:]} row-major",
+               quant_input(rows, d, dtype, gen))
+    for (N, H, W, C), dtype in QUANT_CM_SHAPES:
+        x = quant_input(N * H * W, C, dtype, gen).reshape(N, H, W, C)
+        yield (f"{(N, H, W, C)} {str(dtype)[6:]} channel-major",
+               x.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1))
+
+
+def check_quant(label, x, fused, flush):
+    """One quantizer entry against its plain version, bit for bit, with no
+    copy of x: the fused quantize-dequantize (xhat in x's strides) or the
+    codes and scales. Timed by event pairs and by device time per kernel,
+    beside the device time of a ``copy_`` of x into x's layout (x read
+    and written once: a practical floor, not a library call)."""
+    entry = (split_quant.quantize_dequantize if fused
+             else split_quant.quantize_rows)
+    plain = (split_quant.quantize_dequantize_plain if fused
+             else split_quant.quantize_rows_plain)
+    c0 = split_quant.copies
+    got, want = flat(entry(x)), flat(plain(x))
     torch.cuda.synchronize()
-    check(torch.equal(q, qp) and torch.equal(s, sp),
-          f"quantizer {rows}x{d} {dtype}: not bit-identical to plain")
-    err = max((q.int() - qp.int()).abs().max().item(),
-              (s - sp).abs().max().item())
-    n = rows * d
-    # read x once, write q (int8) and the per-row f32 scales once; about
-    # six f32 operations per element (abs, max, divide, round, 2 clips)
-    b_ms, b_by = bound(n * x.element_size() + n + 4 * rows, 6 * n,
+    what = f"quantizer {entry.__name__} {label}"
+    check(split_quant.copies == c0, f"{what}: x was copied")
+    check(all(torch.equal(g, w) for g, w in zip(got, want)),
+          f"{what}: not bit-identical to plain")
+    check(not fused or got[0].stride() == x.stride(),
+          f"{what}: xhat strides {got[0].stride()} != x's {x.stride()}")
+    err = max((g.float() - w.float()).abs().max().item()
+              for g, w in zip(got, want))
+    n, rows = x.numel(), x.numel() // x.shape[-1]
+    # read x once; write xhat in x's dtype, or the int8 codes and the f32
+    # scales, once; about six f32 operations per element (abs, max,
+    # divide, round, 2 clips)
+    out_bytes = n * x.element_size() if fused else n + 4 * rows
+    b_ms, b_by = bound(n * x.element_size() + out_bytes, 6 * n,
                        torch.float32)
+    dst = torch.empty_like(x)
     return dict(
-        shape=f"quantize rows={rows} d={d} {str(dtype)[6:]}",
-        max_abs_err=err,
-        ms=time_ms(lambda: split_quant.quantize_rows(x), flush=flush),
-        plain_ms=time_ms(lambda: split_quant.quantize_rows_plain(x),
-                         flush=flush),
+        shape=f"{entry.__name__} {label}", max_abs_err=err,
+        ms=time_ms(lambda: entry(x), flush=flush),
+        plain_ms=time_ms(lambda: plain(x), flush=flush),
+        device=device_ms(lambda: entry(x), flush),
+        copy_ms=sum(ms for *_, ms in device_ms(lambda: dst.copy_(x), flush)),
         library_ms=None, bound_ms=b_ms, bound_by=b_by)
 
 
@@ -379,7 +416,7 @@ WRAPPERS = {"flash_attn_fwd": flash_attn.flash_attention_fwd,
             "decode_attn": decode_attn.decode_attention,
             "mamba_scan": mamba_scan.mamba_chunk_scan,
             "mlstm_scan": mlstm_scan.mlstm_chunk_scan,
-            "split_quant": split_quant.quantize_rows}
+            "split_quant": split_quant.quantize_dequantize}
 # What ``ops`` dispatches to on the card, and the plain version that
 # replaces it for the comparisons (their launches are not counted).
 PLAIN_OPS = {
@@ -649,7 +686,7 @@ OUR_KERNELS = ("flash_fwd_mma_kernel", "flash_fwd_kernel",
                "decode_split_kernel", "ssd_kernel", "ssd_chunk_kernel",
                "ssd_state_kernel", "ssd_out_kernel", "mlstm_chunk_kernel",
                "mlstm_norm_kernel", "mlstm_value_kernel", "mlstm_fma_kernel",
-               "quant_kernel")
+               "quant_kernel", "quant_cm_kernel")
 
 
 def profile_decode(engine, label, steps=5):
@@ -683,20 +720,25 @@ def train_full_width(label):
         sim.sl_pass(warm, [shards.batch_at(0, 0)])
         del warm
 
+        split_quant.quantize_dequantize.launches = 0
         split_quant.quantize_rows.launches = 0
+        split_quant.copies = 0
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         records = sim.run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = split_quant.quantize_rows.launches
+        launches = split_quant.quantize_dequantize.launches
+        other = (split_quant.quantize_rows.launches, split_quant.copies)
         handoffs = sorted(Path(handoff_dir).iterdir())
     steps = int(sim.state.step)
     check(steps == sum(min(max(1, round(r.n_items / RING_BATCH)), RING_STEPS)
                        for r in records if r.action in ("trained", "shed")),
           "step counter == the passes' allocated steps")
     check(launches == 2 * steps > 0,
-          f"quantizer launches {launches} != 2 x {steps} SL steps")
+          f"fused quantizer launches {launches} != 2 x {steps} SL steps")
+    check(other == (0, 0), f"quantize_rows launches and wrapper copies "
+          f"{other} on the ring (want none)")
     check(all(r.loss is not None and np.isfinite(r.loss) for r in records),
           "every pass trained with a finite loss")
     check(len(handoffs) == RING_PASSES, "one handoff checkpoint per pass")
@@ -709,12 +751,12 @@ def train_full_width(label):
     step = sl_step.make_sl_step(adapter, quantize_boundary=True)
     pa, pb = sim.state.params_a, sim.state.params_b
     rk = step(pa, pb, batch)
-    kernel_quant = split_quant.quantize_rows
-    split_quant.quantize_rows = split_quant.quantize_rows_plain
+    kernel_quant = split_quant.quantize_dequantize
+    split_quant.quantize_dequantize = split_quant.quantize_dequantize_plain
     try:
         rp = step(pa, pb, batch)
     finally:
-        split_quant.quantize_rows = kernel_quant
+        split_quant.quantize_dequantize = kernel_quant
     lk, lp = float(rk.loss), float(rp.loss)
     check(abs(lk - lp) <= STEP_LOSS_RTOL * abs(lp), (lk, lp))
     g_err = max((a - b).abs().max().item() for a, b in zip(
@@ -750,7 +792,8 @@ def train_full_width(label):
     print(f"  SL step on device batches: {step_ms:.2f} ms "
           f"({1e3 / step_ms:.1f} steps/s), median of 3 passes of "
           f"{RING_STEPS} steps, host clock ending in a sync [{label}]")
-    print(f"  quantizer launches {launches} = 2 x {steps} steps; boundary "
+    print(f"  fused quantizer launches {launches} = 2 x {steps} steps, "
+          f"quantize_rows launches and wrapper copies {other}; boundary "
           f"{bits:.0f} bits/item int8 = 1/4 of {L2_F32_DTX_BITS}; step loss "
           f"kernel {lk:.7f} vs plain {lp:.7f}, grads_a max abs diff "
           f"{g_err:.3e}")
@@ -780,12 +823,14 @@ def device_ms(fn, flush, n=20):
 
 
 def boundary_layout(adapter, pa, pb, batch):
-    """Whether z and dz reach the quantizer as contiguous NHWC rows, and
-    the device time of ``ops.quantize_boundary`` on them as the step
-    hands them over (a strided tensor is copied to rows first), by
-    kernel; and the quantizer kernel's own device time at the
-    autoencoder latent's 392 x 3, beside the event-pair floor of
-    ``time_ms``. Run after the main path's count is read."""
+    """How z and dz reach the quantizer (strides), and the device time of
+    the STE forward (``ops.ste_quantize``) on them as the step hands them
+    over, by kernel: each crossing must be one launch of the quantizer
+    kernel and nothing else (no copy, no elementwise pass). Then segment
+    B's forward and backward on the quantized z in z's strides, against
+    the same on an NHWC-contiguous z (the quantizer's output layout before
+    it kept x's strides): the device time of both and the kernels only
+    one of them runs. Run after the main path's count is read."""
     b = {k: torch.as_tensor(v, device="cuda") for k, v in batch.items()}
     with torch.no_grad():
         z = adapter.forward_a(pa, b)
@@ -793,23 +838,41 @@ def boundary_layout(adapter, pa, pb, batch):
     with torch.enable_grad():
         dz, = torch.autograd.grad(adapter.loss_b(pb, z_tx, b), z_tx)
     flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
-    latent = quant_input(392, 3, torch.float32,
-                         torch.Generator(device="cuda").manual_seed(0))
     parts = [f"empty event pair {time_ms(lambda: None, flush=flush):.4f} ms"]
-    for name, fn, t in (
-            ("z", lambda: ops.quantize_boundary(z), z),
-            ("dz", lambda: ops.quantize_boundary(dz), dz),
-            ("latent 392x3 rows", lambda: split_quant.quantize_rows(latent),
-             latent)):
-        kern = device_ms(fn, flush)
-        detail = ", ".join(f"{k[:48]} {c:g}x {ms:.4f} ms"
-                           for k, c, ms in kern)
+    for name, t in (("z", z), ("dz", dz)):
+        kern = device_ms(lambda: ops.ste_quantize(t), flush)
+        check(len(kern) == 1 and kern[0][1] == 1
+              and any(f"::{k}<" in kern[0][0] for k in ("quant_kernel",
+                                                         "quant_cm_kernel")),
+              f"{name}: one quantizer kernel per crossing, got {kern}")
         parts.append(f"{name} {tuple(t.shape)} stride {t.stride()} "
-                     f"contiguous {t.is_contiguous()}: device "
-                     f"{sum(ms for *_, ms in kern):.4f} ms per call "
-                     f"({detail})")
-    return ("boundary layout on the card (torch.profiler, 20 calls, L2 "
-            "flushed): " + "; ".join(parts))
+                     f"contiguous {t.is_contiguous()}: STE forward "
+                     f"{kern[0][2]:.4f} ms of device time per call, one "
+                     f"kernel ({kern[0][0][:56]})")
+
+    pbg = map_tree(lambda t: t.detach().requires_grad_(), pb)
+
+    def segment_b(zin):
+        def run():
+            zz = zin.detach().requires_grad_()
+            with torch.enable_grad():
+                torch.autograd.grad(adapter.loss_b(pbg, zz, b),
+                                    [zz] + tree_leaves(pbg))
+        return run
+
+    kept = device_ms(segment_b(z_tx), flush, n=5)
+    dense = device_ms(segment_b(z_tx.contiguous()), flush, n=5)
+    names = lambda kern: {k for k, *_ in kern}
+    only = lambda a, b_: ", ".join(f"{k[:64]} {c:g}x {ms:.4f} ms"
+                                   for k, c, ms in a
+                                   if k not in names(b_)) or "none"
+    parts.append(f"segment B fwd+bwd: z in its strides "
+                 f"{sum(ms for *_, ms in kept):.4f} ms of device time, "
+                 f"NHWC-contiguous {sum(ms for *_, ms in dense):.4f} ms; "
+                 f"kernels only with NHWC-contiguous z: {only(dense, kept)}; "
+                 f"only with z in its strides: {only(kept, dense)}")
+    return ("boundary layout on the card (torch.profiler, L2 flushed): "
+            + "; ".join(parts))
 
 
 def profile_sl_steps(sl_pass, state, batches, label):
@@ -839,6 +902,11 @@ def profile_sl_steps(sl_pass, state, batches, label):
     for e in sorted(kern, key=dev_us, reverse=True)[:10]:
         print(f"  {dev_us(e) / n / 1e3:8.4f} ms/step  "
               f"{e.count / n:6.1f}x  {e.key[:90]}")
+    quant = [e for e in kern if any(f"::{k}<" in e.key for k in (
+        "quant_kernel", "quant_cm_kernel"))]
+    print("  the boundary's kernels: " + (", ".join(
+        f"{e.key[:56]} {e.count / n:g}x {dev_us(e) / n / 1e3:.4f} ms/step"
+        for e in quant) or "none"))
 
 
 def autoencoder_pass_224(label):
@@ -851,11 +919,13 @@ def autoencoder_pass_224(label):
     sl_pass = sl_step.make_sl_pass(adapter, quantize_boundary=True,
                                    optimizer=opt)
     batches = [shards.batch_at(0, i) for i in range(4)]
-    n0 = split_quant.quantize_rows.launches
+    n0 = split_quant.quantize_dequantize.launches
+    c0 = split_quant.copies
     res = sl_pass(state, batches)
     losses = res.losses.tolist()
-    check(split_quant.quantize_rows.launches - n0 == 2 * len(batches),
-          "2 quantizer launches per autoencoder step")
+    check(split_quant.quantize_dequantize.launches - n0 == 2 * len(batches),
+          "2 fused quantizer launches per autoencoder step")
+    check(split_quant.copies == c0, "no copy of the autoencoder latent")
     check(all(np.isfinite(losses)), f"autoencoder losses {losses}")
     check(res.dtx_bits_down == RING_BATCH * 7 * 7 * 3 * 8,
           "autoencoder latent payload")
@@ -904,15 +974,18 @@ def main() -> int:
             dtype, 512, gen, flush, H=SMOKE_H, KV=SMOKE_H, D=SMOKE_D))
         rows["decode_attn"].append(check_decode(
             dtype, gen, flush, H=SMOKE_H, KV=SMOKE_H, D=SMOKE_D))
-    for r, d, dtype in QUANT_SHAPES:
-        rows["split_quant"].append(check_quant(r, d, dtype, gen, flush))
+    for label, x in quant_cases(gen):
+        for fused in (False, True):
+            rows["split_quant"].append(check_quant(label, x, fused, flush))
+    empty_ms = time_ms(lambda: None, flush=flush)
     for dtype in (torch.bfloat16, torch.float32):
         for B, S in MAMBA_SHAPES:
             rows["mamba_scan"].append(check_mamba(dtype, B, S, gen, flush))
     for dtype in (torch.bfloat16, torch.float32):
         for B, S in MLSTM_SHAPES:
             rows["mlstm_scan"].append(check_mlstm(dtype, B, S, gen, flush))
-    print(f"kernels vs plain on {smi} (ms, median of 20, L2 flushed):")
+    print(f"kernels vs plain on {smi} (ms, median of 20, L2 flushed; an "
+          f"empty event pair {empty_ms:.4f}):")
     for name, rs in rows.items():
         for r in rs:
             lib = ("none" if r["library_ms"] is None
@@ -930,6 +1003,13 @@ def main() -> int:
                   f"{r['plain_ms']:.4f} library {lib} bound "
                   f"{r['bound_ms']:.4f} ({r['bound_by']}) max_abs_err "
                   f"{r['max_abs_err']:.3e}{ratios}")
+            if name == "split_quant":
+                dev = sum(ms for *_, ms in r["device"])
+                print(f"    device time (torch.profiler, 20 calls) {dev:.4f} "
+                      f"ms = {dev / r['bound_ms']:.1f}x bound ("
+                      + "; ".join(f"{k[:48]} {c:g}x {ms:.4f}"
+                                  for k, c, ms in r["device"])
+                      + f"); copy_ of x into x's layout {r['copy_ms']:.4f} ms")
             if name == "mamba_scan" and r["stages"]:
                 print("    device time by kernel (torch.profiler, 20 calls): "
                       + "; ".join(f"{k[:40]} {c:g}x {ms:.4f} ms"
@@ -972,11 +1052,14 @@ def main() -> int:
     launches = {n: sum(p.get(n, 0) for p in paths.values()) for n in WRAPPERS}
 
     # the kernels at the main paths' largest shapes (attention in bf16 at
-    # SmolLM's heads, the quantizer at ResNet-18's f32 l2 boundary, the
-    # scans in bf16 at S=512)
+    # SmolLM's heads, the quantizer's fused entry at ResNet-18's f32 l2
+    # boundary as the ring hands it over, channel-major; the scans in
+    # bf16 at S=512)
     pick = {"flash_attn_fwd": rows["flash_attn_fwd"][PREFILL_S.index(512)],
             "decode_attn": rows["decode_attn"][0],
-            "split_quant": rows["split_quant"][0],            # 6272 x 128
+            "split_quant": next(r for r in rows["split_quant"] if r["shape"]
+                                == "quantize_dequantize (8, 28, 28, 128) "
+                                   "float32 channel-major"),
             "mamba_scan": scan, "mlstm_scan": mscan}
     meta = {"flash_attn_fwd": ("src/repro_torch/csrc/flash_attn_fwd.cu",
                                "src/repro/kernels/flash_attn.py:126"),

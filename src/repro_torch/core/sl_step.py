@@ -12,11 +12,15 @@ One SL step over a batch at the current satellite:
   (8)   both sides apply the optimizer; at pass end segment A ships over
         the ISL.
 
-The boundary is NHWC, so the int8 quantizer (``ops.ste_quantize``,
-which launches the hand-written kernel on a CUDA tensor) takes one row
-per pixel with the abs-max over channels, as the reference does, and
-every quantized step runs it twice (z down, dz up). The payload is
-``z.numel() * 8`` bits (``* 32`` unquantized).
+The boundary is NHWC, so the int8 quantizer (``ops.ste_quantize``)
+takes one row per pixel with the abs-max over channels, as the
+reference does, and every quantized step runs it twice (z down, dz up).
+On a CUDA tensor each crossing is one launch of the hand-written kernel,
+which reads the boundary in the strides it arrives in (on the card an
+NHWC view of NCHW memory) and writes the dequantized result in the same
+strides, so segment B receives z, and segment A dz, laid out as the
+other side left it. The payload is ``z.numel() * 8`` bits (``* 32``
+unquantized).
 
 Pass engine: the reference fuses a pass into one jitted ``lax.scan``
 whose step count it pads to a bucket with masked no-op steps, to keep

@@ -28,7 +28,8 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(flo
   return __float2bfloat16(x);   // round to nearest even, as torch's .to(bf16)
 }
 
-// Elements of T in one 16-byte vector load, and their f32 values.
+// Elements of T in one 16-byte vector load, their f32 values, and the
+// 16-byte vector of N f32 values rounded to T (pack).
 template <typename T> struct Vec16;
 
 template <> struct Vec16<float> {
@@ -36,6 +37,10 @@ template <> struct Vec16<float> {
   __device__ __forceinline__ static void unpack(const uint4& r, float* f) {
     f[0] = __uint_as_float(r.x); f[1] = __uint_as_float(r.y);
     f[2] = __uint_as_float(r.z); f[3] = __uint_as_float(r.w);
+  }
+  __device__ __forceinline__ static uint4 pack(const float* f) {
+    return make_uint4(__float_as_uint(f[0]), __float_as_uint(f[1]),
+                      __float_as_uint(f[2]), __float_as_uint(f[3]));
   }
 };
 
@@ -49,6 +54,14 @@ template <> struct Vec16<__nv_bfloat16> {
       f[2 * i] = __uint_as_float(w[i] << 16);
       f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
     }
+  }
+  __device__ __forceinline__ static uint4 pack(const float* f) {
+    uint32_t w[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      w[i] = (uint32_t)__bfloat16_as_ushort(from_f32<__nv_bfloat16>(f[2 * i]))
+           | (uint32_t)__bfloat16_as_ushort(from_f32<__nv_bfloat16>(f[2 * i + 1])) << 16;
+    return make_uint4(w[0], w[1], w[2], w[3]);
   }
 };
 

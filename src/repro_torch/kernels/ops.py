@@ -112,14 +112,13 @@ def slstm_scan(xproj, wh, c0, n0, h0, m0):
 def quantize_boundary(x):
     """Per-row int8 quantization of a tensor flattened to (-1, last dim):
     returns q int8 of ``x.shape`` and scale f32 of ``x.shape[:-1] + (1,)``.
-    An NHWC boundary gives one row per pixel, as in the reference."""
-    shape = x.shape
-    x2 = x.reshape(-1, shape[-1])
+    An NHWC boundary gives one row per pixel, as in the reference; on the
+    card the kernel reads a strided boundary as it lies (no copy)."""
     if x.device.type == "cpu":
-        q, s = _quant.quantize_rows_plain(x2)
+        q, s = _quant.quantize_rows_plain(x)
     else:
-        q, s = _quant.quantize_rows(x2)
-    return q.reshape(shape), s.reshape(shape[:-1] + (1,))
+        q, s = _quant.quantize_rows(x)
+    return q.reshape(x.shape), s.reshape(x.shape[:-1] + (1,))
 
 
 def dequantize_boundary(q, s, dtype=torch.float32):
@@ -127,12 +126,14 @@ def dequantize_boundary(q, s, dtype=torch.float32):
 
 
 class _STEQuantize(torch.autograd.Function):
-    """Quantize-dequantize forward, straight-through backward."""
+    """Quantize-dequantize forward (one kernel launch on the card, the
+    result in x's strides), straight-through backward."""
 
     @staticmethod
     def forward(ctx, x):
-        q, s = quantize_boundary(x)
-        return dequantize_boundary(q, s, x.dtype)
+        if x.device.type == "cpu":
+            return _quant.quantize_dequantize_plain(x)
+        return _quant.quantize_dequantize(x)
 
     @staticmethod
     def backward(ctx, g):

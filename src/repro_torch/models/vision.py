@@ -14,8 +14,9 @@ run in NCHW, entered through a permuted view of the NHWC input (no
 copy), and the NHWC result is a permuted view of the last stage's
 output. On the CPU GroupNorm keeps channels-last strides, so that view
 is contiguous; on CUDA ``F.group_norm`` returns NCHW-contiguous tensors,
-so a boundary cut after a GroupNorm is not contiguous there, and
-reshaping it to rows (``ops.quantize_boundary``) copies it once. XLA's
+so a boundary cut after a GroupNorm is an NHWC view of NCHW memory
+there. The quantizer kernel reads such a boundary as it lies, a thread
+per pixel, and writes its result in the same strides (no copy). XLA's
 "SAME" padding is uneven for stride 2 on even
 inputs (e.g. (2, 3) for the 7x7 stem at 224), so it is applied
 explicitly with ``F.pad``; the transposed convs reproduce

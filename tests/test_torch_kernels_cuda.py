@@ -156,13 +156,87 @@ def test_ste_quantize_on_the_card_counts_launches():
     dev = require_cuda()
     x = _quant_input(8 * 28 * 28, 128, torch.float32, dev).reshape(
         8, 28, 28, 128).requires_grad_()
-    n0 = split_quant.quantize_rows.launches
+    n0 = split_quant.quantize_dequantize.launches
+    r0, c0 = split_quant.quantize_rows.launches, split_quant.copies
     y = ops.ste_quantize(x)
     (y * 3.0).sum().backward()
-    assert split_quant.quantize_rows.launches == n0 + 1
+    assert split_quant.quantize_dequantize.launches == n0 + 1
+    assert split_quant.quantize_rows.launches == r0
+    assert split_quant.copies == c0
     q, s = split_quant.quantize_rows_plain(x.detach().reshape(-1, 128))
     assert torch.equal(y.detach().reshape(-1, 128), q.float() * s)
     assert torch.equal(x.grad, torch.full_like(x, 3.0))
+
+
+def _as_layout(x, layout):
+    """x (N, H, W, C) with the same values, NHWC-contiguous ("rows") or as
+    the NHWC view of NCHW memory that a conv stage hands over
+    ("channels")."""
+    if layout == "rows":
+        return x.contiguous()
+    return x.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1)
+
+
+# (N, H, W, C): ResNet-18's l2 boundary at batch 8 (6,272 rows of 128),
+# the autoencoder latent (392 rows of 3), C = 130 (no 16-byte vectors),
+# a ragged last tile of pixels (N H W = 45) and the widest channel-major
+# rows the kernel reads in place (C = 256, ResNet-18's l3 width)
+QUANT_BOUNDARIES = [(8, 28, 28, 128), (8, 7, 7, 3), (2, 5, 5, 130),
+                    (1, 5, 9, 16), (1, 4, 8, 256)]
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("layout", ["rows", "channels"])
+@pytest.mark.parametrize("shape", QUANT_BOUNDARIES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_quant_entries_bit_exact_on_both_layouts(shape, layout, dtype):
+    dev = require_cuda()
+    N, H, W, C = shape
+    x = _as_layout(_quant_input(N * H * W, C, dtype, dev).reshape(shape),
+                   layout)
+    c0 = split_quant.copies
+    y = split_quant.quantize_dequantize(x)
+    q, s = split_quant.quantize_rows(x)
+    yp = split_quant.quantize_dequantize_plain(x)
+    qp, sp = split_quant.quantize_rows_plain(x)
+    torch.cuda.synchronize()
+    assert split_quant.copies == c0
+    assert y.dtype == dtype and y.shape == x.shape
+    assert y.stride() == x.stride() and yp.stride() == x.stride()
+    assert torch.equal(y, yp)
+    assert q.shape == (N * H * W, C) and s.shape == (N * H * W, 1)
+    assert torch.equal(q, qp) and torch.equal(s, sp)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("layout", ["rows", "channels"])
+def test_ste_quantize_one_launch_no_copy(layout):
+    dev = require_cuda()
+    x = _as_layout(_quant_input(8 * 28 * 28, 128, torch.float32, dev)
+                   .reshape(8, 28, 28, 128), layout).requires_grad_()
+    n0, c0 = split_quant.quantize_dequantize.launches, split_quant.copies
+    y = ops.ste_quantize(x)
+    assert split_quant.quantize_dequantize.launches == n0 + 1
+    assert split_quant.copies == c0
+    assert y.stride() == x.stride()
+    assert torch.equal(y.detach(), split_quant.quantize_dequantize_plain(
+        x.detach()))
+    g = torch.randn_like(x)
+    y.backward(g)
+    assert torch.equal(x.grad, g)
+
+
+@pytest.mark.requires_cuda
+def test_quant_layout_off_both_paths_is_copied_and_counted():
+    dev = require_cuda()
+    base = _quant_input(2 * 6 * 6, 16, torch.float32, dev).reshape(
+        2, 6, 6, 16)
+    x = base.permute(0, 3, 1, 2).contiguous().permute(0, 3, 2, 1)  # H, W swapped
+    assert split_quant.layout(x) is None
+    c0 = split_quant.copies
+    y = split_quant.quantize_dequantize(x)
+    assert split_quant.copies == c0 + 1
+    assert torch.equal(y, split_quant.quantize_dequantize_plain(x))
 
 
 # (B, S, H, P, N, chunk): the reference's MAMBA_SWEEP, S = 1, and
