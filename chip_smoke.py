@@ -42,8 +42,28 @@ Phases, each fatal on failure:
      the mLSTM scan kernel (prefill; decode and the sLSTM recurrence are
      plain PyTorch): phase 6's checks, no kernel launch in a decode step,
      and the f32 prefill logits held within the spread of two exact
-     mLSTM chunkings instead of 1e-3.
-The last two lines are the kernels' JSON record and the result JSON.
+     mLSTM chunkings instead of 1e-3;
+  8. the device-resident closed loop (repro_torch.sim): (a) one revolution
+     of the Table-I plane training full-width ResNet-18 (224 px, cut l2,
+     batch 8, int8 boundary, SGD) on batches generated on the card, 6 of
+     8 executed steps a pass valid and two satellites below reserve, the
+     device engine against the host engine on the same provider (equal
+     actions, losses, batteries and energies at the reference's
+     host-vs-device tolerances), no host sync inside the revolution (the
+     engine runs it under sync-debug mode "error"), 2 quantizer launches
+     per executed step and no copy, with passes/s, steps/s, card time and
+     idle share per revolution, batch generation and plan solve times;
+     (b) the reference example's 1000-satellite ring (autoencoder at
+     32 px, batch 2, 200 J batteries, int8 boundary), streamed one host
+     sync per revolution, reserve skips by the third revolution, the
+     quantizer held bit for bit on the ring's own z and dz, and the host
+     engine timed on the first 250 passes of the same ring.
+Each phase prints its elapsed time. Every profile is framed by marker
+kernels (cuda_events), since torch.profiler can drop a trace's first
+kernels.
+Phases 4, 6 and 7 also print the satellite's joules per token at their
+measured rate (serve_cost). The last two lines are the kernels' JSON
+record and the result JSON.
 Exits non-zero without a CUDA device.
 """
 from __future__ import annotations
@@ -64,9 +84,11 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch import configs  # noqa: E402
 from repro_torch.core import sl_step  # noqa: E402
+from repro_torch.core import resource_opt  # noqa: E402
 from repro_torch.core.constellation import (ConstellationConfig,  # noqa: E402
                                             ConstellationSim)
 from repro_torch.core.energy import PassBudget  # noqa: E402
+from repro_torch.core.orbits import OrbitalPlane  # noqa: E402
 from repro_torch.core.splitting import RESNET18_PAPER_CUTS  # noqa: E402
 from repro_torch.core.train_state import SLTrainState  # noqa: E402
 from repro_torch.data.synthetic import ImageryShards  # noqa: E402
@@ -75,10 +97,15 @@ from repro_torch.kernels import (_build, decode_attn, flash_attn,  # noqa: E402
 from repro_torch.models import lm  # noqa: E402
 from repro_torch.models.param import map_tree  # noqa: E402
 from repro_torch.train.optimizer import resolve_optimizer  # noqa: E402
+from repro_torch.utils.bucketing import bucket_size  # noqa: E402
 from repro_torch.utils.treeutil import tree_leaves  # noqa: E402
 from repro_torch.models.layers import Ctx  # noqa: E402
 from repro_torch.serve.engine import DecodeEngine, Request  # noqa: E402
-from repro_torch.serve_fleet.engine import SplitDecodeEngine  # noqa: E402
+from repro_torch.serve_fleet.engine import (SplitDecodeEngine,  # noqa: E402
+                                            serve_cost)
+from repro_torch.sim import (ACTION_SKIPPED, ACTION_TRAINED,  # noqa: E402
+                             DeviceConstellationSim, DeviceImageryShards,
+                             DeviceSimConfig, plan_ring_passes)
 
 # Published H100 SXM peaks (NVIDIA data sheet; dense, at 700 W).
 HBM_BYTES_PER_S = 3.35e12
@@ -98,10 +125,13 @@ QUANT_SHAPES = [(6272, 128, torch.float32), (6272, 128, torch.bfloat16),
                 (392, 3, torch.float32), (1000, 130, torch.float32)]
 # The same boundaries as the training path hands them over on the card,
 # an NHWC view of NCHW memory (channel-major rows): ResNet-18's l2 z and
-# dz, and the autoencoder latent.
+# dz, the autoencoder latent at 224 px, and at 32 px and batch 2 (phase
+# 8b's ring, 12,000 of the main paths' launches; phase 8b also holds the
+# kernel against the plain version on its own z and dz).
 QUANT_CM_SHAPES = [((8, 28, 28, 128), torch.float32),
                    ((8, 28, 28, 128), torch.bfloat16),
-                   ((8, 7, 7, 3), torch.float32)]
+                   ((8, 7, 7, 3), torch.float32),
+                   ((2, 1, 1, 3), torch.float32)]
 # The Mamba-2 scan at Zamba2-1.2B's full-width heads (H=64, P=N=64,
 # chunk 128): (B, S), S = 1 and ragged last chunks included.
 MAMBA_H, MAMBA_P, MAMBA_N, MAMBA_CHUNK = 64, 64, 64, 128
@@ -145,6 +175,9 @@ LOGITS_TOL_OF_MAX = 0.03
 # the largest logit (PERF.md, Findings). There the kernel path is held to
 # the plain path at the kernel's chunk within that spread, measured anew.
 PREFILL_F32_TOL_OF_MAX = 1e-3
+# Marker kernels on each side of a profiled region (cuda_events): runs on
+# the H100 lost 1-4 of a trace's first kernels.
+PROFILE_EDGE = 4
 
 
 def check(ok, what):
@@ -613,10 +646,22 @@ def serve_full_width(arch, label):
     p_err, p_max, p_agree = logits_close(pk32, pp32, "f32 prefill", p_tol)
 
     n_tok = sum(len(t) for t in out.values())
+    # the satellite's joules per token at the measured rate, Table-I link
+    # and device (PassBudget() defaults), the bf16 boundary's bits
+    cost = serve_cost(cfg, params, cut, tokens_per_s=n_tok / wall,
+                      act_bits=split.act_dtype.itemsize * 8)
+    check(cost.e_token_j > 0 and cost.dtx_bits_token
+          == split.boundary_bits_per_token, f"serve cost {cost}")
     print(f"serve {arch} split@{cut}, 8 slots, s_max 2048, 16 requests "
           f"(prompts {plens.min()}-{plens.max()}), 32 new tokens each [{label}]")
     print(f"  {n_tok} tokens in {wall:.3f} s: {n_tok / wall:.1f} tok/s "
           f"[{label}]")
+    print(f"  serve_cost at {cost.tokens_per_s:.1f} tok/s: e_token_j "
+          f"{cost.e_token_j:.6g} J per token on the satellite (DVFS compute "
+          f"of units [0, {cut}) + downlink of {cost.dtx_bits_token:.0f} "
+          f"bits), PassBudget() defaults; a 90 s window serves "
+          f"{cost.window_capacity_requests(90.0, 32):.0f} requests of 32 "
+          f"tokens")
     print(f"  prefill median {statistics.median(prefill_ms):.2f} ms over "
           f"{len(prefill_ms)} prompts [{label}]")
     print(f"  decode step median {statistics.median(step_ms):.2f} ms over "
@@ -642,20 +687,62 @@ def serve_full_width(arch, label):
     return launches
 
 
+def cuda_events(run, cpu=True, whole=None):
+    """The kernels (CUDA events by name) of torch.profiler's trace of
+    ``run()``. The profiler has lost the first kernels of a trace on the
+    H100 (all of a trace's quantizer launches once, 1 of 20 another time,
+    in phase 5; 3 marker kernels at one edge of every CPU+CUDA trace), so
+    the trace is framed by ``PROFILE_EDGE`` marker kernels on each side
+    (``torch.cuda._sleep``'s ``spin_kernel``, left out of the result),
+    which a loss at an edge takes first. A kernel-only trace (``cpu``
+    false, a few ms) is taken again, each time of a new ``run()``, up to
+    3 traces, while no marker is left before or after every other kernel
+    or ``whole(kernels)`` is false; a CPU+CUDA trace (a revolution, a
+    few prefills: a minute to parse) is taken once and a missing frame
+    reported. The last trace is returned as it is, for the caller's
+    checks to judge."""
+    from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if cpu else [])
+    cuda = torch.autograd.DeviceType.CUDA
+    attempts = 1 if cpu else 3
+    for attempt in range(attempts):
+        with profile(activities=acts) as prof:
+            time.sleep(0.02)
+            for _ in range(PROFILE_EDGE):
+                torch.cuda._sleep(1000)
+            run()
+            for _ in range(PROFILE_EDGE):
+                torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+        evs = [e for e in prof.events() if e.device_type == cuda]
+        spins = [e.time_range.start for e in evs if "spin_kernel" in e.name]
+        work = [e.time_range.start for e in evs
+                if "spin_kernel" not in e.name]
+        lead = sum(t <= min(work) for t in spins) if work else 0
+        tail = sum(t >= max(work) for t in spins) if work else 0
+        kern = [e for e in prof.key_averages()
+                if e.device_type == cuda and "spin_kernel" not in e.key]
+        if lead and tail and (whole is None or whole(kern)):
+            break
+        print(f"  (torch.profiler trace {attempt + 1} of {attempts} is not "
+              f"whole: markers before the work {lead} of {PROFILE_EDGE}, "
+              f"after it {tail} of {PROFILE_EDGE})")
+    return kern
+
+
 def profile_calls(fn, n, what, label):
     """Kernel time by name over ``n`` calls of ``fn`` (each returning host
     values, so synced), against the same calls' host-clock time."""
-    from torch.profiler import ProfilerActivity, profile
     fn()
     t0 = time.perf_counter()
     for _ in range(n):
         fn()
     call = (time.perf_counter() - t0) / n * 1e3
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+
+    def run():
         for _ in range(n):
             fn()
-    kern = [e for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
+    kern = cuda_events(run)
     dev_us = lambda e: getattr(e, "self_device_time_total", 0)
     busy = sum(dev_us(e) for e in kern) / n / 1e3
     if busy == 0:
@@ -799,7 +886,7 @@ def train_full_width(label):
           f"{g_err:.3e}")
     print(f"  {layout} [{label}]")
     profile_sl_steps(sim.sl_pass, state, dev_batches[:4], label)
-    return launches
+    return launches, gen_ms
 
 
 def device_ms(fn, flush, n=20):
@@ -807,19 +894,20 @@ def device_ms(fn, flush, n=20):
     host gaps, unlike a pair of events around a Python call): a list of
     (kernel name, launches per call, ms per call). ``flush`` is zeroed
     before each call and its fill left out."""
-    from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+
+    def run():
         for _ in range(n):
             flush.zero_()
             fn()
-        torch.cuda.synchronize()
+    is_fill = lambda e: "FillFunctor" in e.key or "Memset" in e.key
+    # whole: every call's flush is in the trace
+    kern = cuda_events(run, cpu=False, whole=lambda kern: sum(
+        e.count for e in kern if is_fill(e)) >= n)
     return [(e.key, e.count / n,
              getattr(e, "self_device_time_total", 0) / n / 1e3)
-            for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA
-            and "FillFunctor" not in e.key and "Memset" not in e.key]
+            for e in kern if not is_fill(e)]
 
 
 def boundary_layout(adapter, pa, pb, batch):
@@ -878,18 +966,18 @@ def boundary_layout(adapter, pa, pb, batch):
 def profile_sl_steps(sl_pass, state, batches, label):
     """Kernel time by name over one pass of a few SL steps, against the
     same pass's host-clock time."""
-    from torch.profiler import ProfilerActivity, profile
     n = len(batches)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     res = sl_pass(state, batches)
     float(res.losses[-1])
     step = (time.perf_counter() - t0) / n * 1e3
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+
+    def run():
+        nonlocal res
         res = sl_pass(res.state, batches)
         float(res.losses[-1])
-    kern = [e for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
+    kern = cuda_events(run)
     dev_us = lambda e: getattr(e, "self_device_time_total", 0)
     busy = sum(dev_us(e) for e in kern) / n / 1e3
     if busy == 0:
@@ -934,6 +1022,298 @@ def autoencoder_pass_224(label):
           f"{res.dtx_bits_down} bits per step (8x7x7x3 int8)")
 
 
+# Phase 8a: one revolution of the Table-I plane on the device engine, at
+# phase 5's width, against the host engine; the reference's host-vs-device
+# tolerances (tests/test_device_sim.py:33-52). Capped at 6 SL steps a
+# pass, so every pass executes K = bucket_size(6) = 8 steps, 2 of them
+# masked, and two satellites start at 90 J, below the 100 J reserve, so
+# their passes are skipped (all 8 steps masked). Solar recharge at 1 mW
+# (0.23 J a 227-s pass) keeps them below it until their turn.
+LOOP_TOL = dict(loss=(2e-4, 1e-5), battery=(1e-5, 0.05), e_total=(1e-5, 1e-9))
+LOOP_STEPS, LOOP_LOW_SATS, LOOP_LOW_J, LOOP_RECHARGE_W = (
+    6, (3, 17), 90.0, 1e-3)
+# Phase 8b: examples/constellation_device_sim.py's single ring (60-71),
+# with the int8 boundary on; skips need a third revolution (200 J, ~48 J
+# a pass, reserve 150 J).
+BIG_RING, BIG_REVS = 1000, 3
+# ... and the host engine, timed on a cut of its first revolution
+HOST_PASSES = 250
+
+
+def quant_kernels(kern):
+    """(launches, device ms) of the quantizer kernel among a trace's
+    kernels."""
+    ev = [e for e in kern if any(f"::{k}<" in e.key for k in (
+        "quant_kernel", "quant_cm_kernel"))]
+    return (sum(e.count for e in ev),
+            sum(getattr(e, "self_device_time_total", 0) for e in ev) / 1e3)
+
+
+def profile_revolution(eng, label):
+    """One more revolution of ``eng``, unprofiled (host clock, ending in
+    the engine's telemetry read) then profiled: card time by kernel, idle
+    share, and the quantizer's launches seen by the profiler."""
+    t0 = time.perf_counter()
+    eng.run(1)
+    wall = time.perf_counter() - t0
+    counted = 0
+
+    def run():
+        nonlocal counted
+        n0 = split_quant.quantize_dequantize.launches
+        eng.run(1)
+        counted = split_quant.quantize_dequantize.launches - n0
+    kern = cuda_events(run)
+    dev_us = lambda e: getattr(e, "self_device_time_total", 0)
+    busy = sum(dev_us(e) for e in kern) / 1e3
+    q_n, q_ms = quant_kernels(kern)
+    check(busy > 0, "the profiler saw the revolution's kernels")
+    check(q_n == counted == 2 * eng.n_sats * eng.scan_steps,
+          f"quantizer launches: profiler {q_n}, wrapper {counted}")
+    steps = eng.n_sats * eng.scan_steps
+    print(f"  profile of one revolution [{label}]: {wall * 1e3:.1f} ms host "
+          f"clock (unprofiled), {busy:.1f} ms of card time, device idle "
+          f"{max(0.0, 1 - busy / (wall * 1e3)):.1%}; per executed step "
+          f"{wall * 1e3 / steps:.3f} ms host clock, {busy / steps:.3f} ms "
+          f"of card time; quantizer {q_n} launches (profiler = wrapper "
+          f"count), {q_ms:.3f} ms")
+    for e in sorted(kern, key=dev_us, reverse=True)[:6]:
+        print(f"    {dev_us(e) / 1e3:8.3f} ms  {e.count:6d}x  {e.key[:80]}")
+    return wall, busy
+
+
+def device_loop_full_width(label, numpy_gen_ms):
+    """Phase 8a: the device engine at full width against the host engine."""
+    adapter = sl_step.resnet18_adapter(cut=RESNET18_PAPER_CUTS["l2"],
+                                       img=224)
+    shards = DeviceImageryShards(img=224, batch=RING_BATCH, device="cuda")
+    budget = PassBudget()                      # Table I: 25 sats, 400 items
+    cfg = ConstellationConfig(n_passes=budget.plane.n_sats, optimizer="sgd",
+                              quantize_boundary=True,
+                              max_steps_per_pass=LOOP_STEPS,
+                              recharge_w=LOOP_RECHARGE_W)
+    host = ConstellationSim(adapter, budget, shards, cfg, device="cuda")
+    dev = ConstellationSim(adapter, budget, shards, cfg, device="cuda")
+    for sim in (host, dev):              # the device engine takes them over
+        for i in LOOP_LOW_SATS:
+            sim.sats[i].battery_j = LOOP_LOW_J
+    warm = SLTrainState.create(*adapter.init(torch.Generator(
+        device="cuda").manual_seed(1)), host.optimizer)
+    host.sl_pass(warm, [shards(0, 0)])            # cuDNN/cuBLAS handles
+    del warm
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        host.run()
+        torch.cuda.synchronize()
+        host_wall = time.perf_counter() - t0
+        split_quant.quantize_dequantize.launches = 0
+        split_quant.quantize_rows.launches = 0
+        split_quant.copies = 0
+        t0 = time.perf_counter()
+        dev.run(engine="device")                  # ends in its telemetry read
+        wall = time.perf_counter() - t0
+        launches = split_quant.quantize_dequantize.launches
+        other = (split_quant.quantize_rows.launches, split_quant.copies)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    eng = dev.device_engine
+    steps = eng.scan_steps
+    skipped = [r.sat_id for r in dev.records if r.action == "skipped_energy"]
+    planned = set(eng._host_plan.n_steps.tolist())
+    check(skipped == list(LOOP_LOW_SATS) and planned == {LOOP_STEPS}
+          and steps == bucket_size(LOOP_STEPS) > LOOP_STEPS,
+          f"masked steps: skipped sats {skipped}, planned steps {planned}, "
+          f"executed {steps} a pass")
+    check(launches == 2 * budget.plane.n_sats * steps > 0,
+          f"quantizer launches {launches} != 2 x {budget.plane.n_sats} "
+          f"passes x {steps} steps")
+    check(other == (0, 0), f"quantize_rows launches and copies {other}")
+    check(eng.traces == 1 and eng.device_calls == eng.host_syncs == 1,
+          f"one build, dispatch and sync: {eng.traces}, {eng.device_calls}, "
+          f"{eng.host_syncs}")
+    acts = [r.action for r in host.records]
+    check([r.action for r in dev.records] == acts,
+          f"actions: host {acts}, device {[r.action for r in dev.records]}")
+    errs = dict(loss=0.0, battery=0.0, e_total=0.0)
+    for h, d in zip(host.records, dev.records):
+        for key, hv, dv in (("loss", h.loss, d.loss),
+                            ("battery", h.battery_j, d.battery_j),
+                            ("e_total", h.e_total_j, d.e_total_j)):
+            if hv is None:
+                check(dv is None, "a skipped pass has no loss")
+                continue
+            rtol, atol = LOOP_TOL[key]
+            check(np.isfinite(dv) and abs(dv - hv) <= atol + rtol * abs(hv),
+                  f"{key}: device {dv} host {hv}")
+            errs[key] = max(errs[key], abs(dv - hv) / max(abs(hv), 1e-30))
+    valid = sum(min(max(1, round(r.n_items / RING_BATCH)), LOOP_STEPS)
+                for r in dev.records if r.loss is not None)
+    print(f"device loop resnet18 224px cut l2 batch {RING_BATCH}, one "
+          f"revolution of the 25-sat Table-I plane, {LOOP_STEPS} SL steps "
+          f"of {steps} executed a pass, sats {list(LOOP_LOW_SATS)} at "
+          f"{LOOP_LOW_J:g} J (reserve {cfg.reserve_j:g} J), recharge "
+          f"{LOOP_RECHARGE_W:g} W, int8 boundary, sgd, TF32 off, cudnn.deterministic "
+          f"[{label}]")
+    print(f"  actions {acts}; losses "
+          f"{[r.loss and round(r.loss, 4) for r in dev.records]}")
+    print(f"  device engine == host engine: actions equal; largest relative "
+          f"difference loss {errs['loss']:.2e}, battery {errs['battery']:.2e}, "
+          f"e_total {errs['e_total']:.2e}; no host sync inside the "
+          f"revolution (sync-debug mode 'error' around it)")
+    print(f"  device engine: 25 passes in {wall:.3f} s = {25 / wall:.2f} "
+          f"passes/s, {valid / wall:.2f} valid SL steps/s incl. planning "
+          f"and the telemetry read; host engine (same provider) "
+          f"{host_wall:.3f} s = {valid / host_wall:.2f} steps/s [{label}]")
+    print(f"  masked steps {25 * steps - valid} of {25 * steps}: "
+          f"{len(skipped)} skipped passes x {steps} + {25 - len(skipped)} "
+          f"passes x {steps - LOOP_STEPS} beyond the allocation; quantizer "
+          f"launches {launches} = 2 x 25 passes x {steps} executed steps "
+          f"(masked included), quantize_rows launches and copies {other}")
+    rev_wall, busy = profile_revolution(eng, label)
+
+    # batch generation on the card (per batch) beside phase 5's NumPy
+    sat, idx = torch.arange(25, device="cuda")[3:4], eng._batch_idx + 0
+    gen_ms = time_ms(lambda: shards(sat, idx))
+    print(f"  batch generation on the card (DeviceImageryShards, {RING_BATCH}"
+          f"x224x224x3 + labels): {gen_ms:.3f} ms per batch (CUDA events, "
+          f"median of 20) vs NumPy ImageryShards {numpy_gen_ms:.2f} ms in "
+          f"phase 5 [{label}]")
+    # the plan: 25 instances, float64 on the card vs the NumPy planner
+    costs, times = eng.costs, {"torch": [], "numpy": []}
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        plan = plan_ring_passes(budget, costs, batch_size=RING_BATCH,
+                                max_steps_per_pass=RING_STEPS, device="cuda")
+        int(plan.n_steps[0])                         # ends in a sync
+        times["torch"].append((time.perf_counter() - t0) * 1e3)
+        t0 = time.perf_counter()
+        resource_opt.solve_with_shedding_batch([budget] * 25, [costs] * 25,
+                                               backend="numpy")
+        times["numpy"].append((time.perf_counter() - t0) * 1e3)
+    print(f"  plan of 25 instances: torch float64 on the card "
+          f"{statistics.median(times['torch']):.2f} ms (80 masked bisection "
+          f"steps, host clock ending in a sync), NumPy planner "
+          f"{statistics.median(times['numpy']):.2f} ms (median of 5) "
+          f"[{label}]")
+    return launches
+
+
+def boundary_bitwise(adapter, state, batch):
+    """z and dz of one SL step as the step hands them to the quantizer,
+    each held bit for bit against the plain version by both entries, with
+    no copy. Run after the main path's count is read."""
+    with torch.no_grad():
+        z = adapter.forward_a(state.params_a, batch)
+    z_tx = ops.ste_quantize(z).requires_grad_()
+    with torch.enable_grad():
+        dz, = torch.autograd.grad(adapter.loss_b(state.params_b, z_tx, batch),
+                                  z_tx)
+    parts = []
+    for name, t in (("z", z), ("dz", dz)):
+        check((tuple(t.shape), t.dtype) in QUANT_CM_SHAPES,
+              f"{name} {tuple(t.shape)} {t.dtype} is not a phase-3 shape")
+        for entry, plain in ((split_quant.quantize_dequantize,
+                              split_quant.quantize_dequantize_plain),
+                             (split_quant.quantize_rows,
+                              split_quant.quantize_rows_plain)):
+            c0 = split_quant.copies
+            got, want = flat(entry(t)), flat(plain(t))
+            check(split_quant.copies == c0
+                  and all(torch.equal(g, w) for g, w in zip(got, want)),
+                  f"{name}: {entry.__name__} not bit-identical to plain, or "
+                  f"copied, at the path's boundary")
+        parts.append(f"{name} {tuple(t.shape)} stride {t.stride()}")
+    return parts
+
+
+def device_loop_1000(label):
+    """Phase 8b: the reference example's 1000-satellite ring, then one
+    revolution of the host engine on the same ring for its time."""
+    adapter = sl_step.autoencoder_adapter(cut=5, img=32)
+    shards = DeviceImageryShards(img=32, batch=2, device="cuda")
+    budget = PassBudget(plane=OrbitalPlane(n_sats=BIG_RING), n_items=4e6)
+    knobs = dict(battery_j=200.0, recharge_w=1e-4, reserve_j=150.0,
+                 max_steps_per_pass=2, quantize_boundary=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng = DeviceConstellationSim(adapter, budget, shards, DeviceSimConfig(
+        n_revolutions=BIG_REVS, **knobs), device="cuda")
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    split_quant.quantize_dequantize.launches = 0
+    split_quant.copies = 0
+    rows, actions = [], []
+    torch.cuda.synchronize()
+    for rev in range(BIG_REVS):
+        t0 = time.perf_counter()
+        res = eng.run(1, stream_telemetry=True)
+        actions.append(res.action[0].tolist())
+        rows.append((time.perf_counter() - t0,
+                     int((res.action == ACTION_SKIPPED).sum()),
+                     float(np.nanmean(res.loss)) if np.isfinite(
+                         res.loss).any() else float("nan")))
+    launches = split_quant.quantize_dequantize.launches
+    check(eng.traces == 1 and eng.device_calls == eng.host_syncs == BIG_REVS,
+          f"one sync per revolution: {eng.traces} builds, "
+          f"{eng.device_calls} dispatches, {eng.host_syncs} syncs")
+    check(rows[-1][1] > 0, f"reserve skips by revolution {BIG_REVS - 1}")
+    check(launches == 2 * BIG_RING * eng.scan_steps * BIG_REVS
+          and split_quant.copies == 0, f"quantizer launches {launches}")
+    check(np.isfinite(rows[0][2]), "finite losses")
+    print(f"device loop autoencoder 32px batch 2, {BIG_RING}-sat ring, "
+          f"{BIG_REVS} streamed revolutions, {eng.scan_steps} steps/pass, "
+          f"int8 boundary [{label}]")
+    print(f"  device engine: construction {build_s:.3f} s (boundary "
+          f"measured on the meta device, the {BIG_RING}-instance plan in "
+          f"float64 "
+          f"on the card)")
+    for rev, (s, skipped, loss) in enumerate(rows):
+        print(f"  rev {rev}: {s:.3f} s = {BIG_RING / s:.1f} passes/s, "
+              f"skipped {skipped}, mean loss {loss:.4f} [{label}]")
+    print(f"  {eng.traces} build, {eng.device_calls} dispatches, "
+          f"{eng.host_syncs} telemetry syncs; quantizer launches {launches} "
+          f"= 2 x {BIG_RING} x {eng.scan_steps} x {BIG_REVS}")
+    sat = torch.zeros(1, dtype=torch.int64, device="cuda")
+    parts = boundary_bitwise(adapter, eng.state, shards(sat, eng._batch_idx))
+    print(f"  the boundary as the ring hands it over: {'; '.join(parts)}; "
+          f"both entries bit-identical to plain, no copy")
+
+    # the host engine on the same ring from a full fleet, cut to the first
+    # HOST_PASSES passes of revolution 0: the same 2 steps a pass (all
+    # trained); it plans the whole ring with NumPy at its first pass, after
+    # peeking each satellite's first batch
+    host = ConstellationSim(adapter, budget, shards, ConstellationConfig(
+        n_passes=HOST_PASSES, optimizer="sgd", **knobs), device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    host.planner.entry_for(0, range(BIG_RING), budget,
+                           [host._costs_for(s) for s in range(BIG_RING)])
+    plan_s = time.perf_counter() - t0
+    recs = host.run()
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - t0
+    check(all(r.action == "trained" for r in recs)
+          and actions[0] == [ACTION_TRAINED] * BIG_RING,
+          f"revolution 0: host {set(r.action for r in recs)}, device "
+          f"{set(actions[0])}")
+    check(all(np.isfinite(r.loss) for r in recs), "host engine: finite losses")
+    check(host.planner.solve_calls == 1, "host engine: one plan")
+    pass_s = (host_s - plan_s) / HOST_PASSES
+    print(f"  host engine, same ring and provider, the first {HOST_PASSES} "
+          f"passes of revolution 0: {host_s:.3f} s, of which the NumPy plan "
+          f"of {BIG_RING} instances with its {BIG_RING} batch peeks "
+          f"{plan_s:.3f} s; {pass_s * 1e3:.2f} ms a pass = "
+          f"{1 / pass_s:.1f} passes/s, a revolution at that rate "
+          f"{plan_s + BIG_RING * pass_s:.3f} s with its plan (device engine: "
+          f"{rows[0][0]:.3f} s for revolution 0, its plan made at "
+          f"construction) [{label}]")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -946,6 +1326,10 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     print(f"device: {kind}, torch {torch.__version__}, CUDA {torch.version.cuda}")
+    t_run = time.perf_counter()
+
+    def phase_done(what):
+        print(f"[{time.perf_counter() - t_run:.1f} s] {what} done")
 
     t0 = time.perf_counter()
     secs = _build.build()
@@ -1039,16 +1423,30 @@ def main() -> int:
           f"f32 peak; bound {mscan['bound_ms']:.4f} ms by "
           f"{mscan['bound_by']}")
     del flush
+    phase_done("phases 2-3 (build, kernels vs plain)")
 
     paths = {"smollm_360m": serve_full_width("smollm_360m", smi)}
     torch.cuda.empty_cache()
-    paths["resnet18_ring"] = {"split_quant": train_full_width(smi)}
+    phase_done("phase 4 (SmolLM-360M)")
+    ring_launches, numpy_gen_ms = train_full_width(smi)
+    paths["resnet18_ring"] = {"split_quant": ring_launches}
     autoencoder_pass_224(smi)
     torch.cuda.empty_cache()
+    phase_done("phase 5 (training ring)")
     paths["zamba2_1_2b"] = serve_full_width("zamba2_1_2b", smi)
     torch.cuda.empty_cache()
+    phase_done("phase 6 (Zamba2-1.2B)")
     paths["xlstm_1_3b"] = serve_full_width("xlstm_1_3b", smi)
-    print(f"launches on the main paths: {paths}")
+    torch.cuda.empty_cache()
+    phase_done("phase 7 (xLSTM-1.3B)")
+    paths["device_loop_resnet18"] = {
+        "split_quant": device_loop_full_width(smi, numpy_gen_ms)}
+    torch.cuda.empty_cache()
+    phase_done("phase 8a")
+    paths["device_loop_1000"] = {"split_quant": device_loop_1000(smi)}
+    phase_done("phase 8b")
+    print(f"launches on the main paths (B1: counted by its wrapper at each "
+          f"launch; the device loop is eager, no graph): {paths}")
     launches = {n: sum(p.get(n, 0) for p in paths.values()) for n in WRAPPERS}
 
     # the kernels at the main paths' largest shapes (attention in bf16 at

@@ -39,8 +39,11 @@ Fault / policy model:
     collects solar recharge exactly for the passes it was a ring member
     of, and 0 J on an eclipsed pass.
 
-``run(engine="device")`` — the reference's device-resident engines
-(``repro.sim.device_sim``, ``repro.fleet``) — is not ported yet.
+``run(engine="device")`` hands a static ring to the device-resident
+engine (:mod:`repro_torch.sim.device_sim`) and folds its telemetry back
+into :class:`PassRecord` form. Elastic rings (join/leave, failures, dead
+satellites, eclipses) go to the reference's fleet engine, which is the
+next slice of the port: here they raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -55,7 +58,7 @@ from repro_torch.core.energy import (PassBudget, SplitCosts, clamp_battery,
                                      solar_recharge_j)
 from repro_torch.core.mission import RevolutionPlanner
 from repro_torch.core.sl_step import (SplitAdapter, make_boundary_meter,
-                                      make_sl_pass)
+                                      make_sl_pass, ring_boundary_bits)
 from repro_torch.core.train_state import SLTrainState
 from repro_torch.fleet.events import leave_ids
 from repro_torch.train.optimizer import Optimizer, resolve_optimizer
@@ -121,7 +124,8 @@ class ConstellationConfig:
     max_steps_per_pass: Optional[int] = 128
     pass_chunk_steps: int = 256          # batches materialized at once
     # problem-(13) solver backend for the revolution planner: None,
-    # "auto" or "numpy" ("jax" raises: not ported)
+    # "auto" or "numpy" (the NumPy solver, at any ring size), or "torch"
+    # (on the sim's device); "jax" raises
     solver_backend: Optional[str] = None
 
 
@@ -165,7 +169,15 @@ class ConstellationSim:
         self.sl_pass = make_sl_pass(adapter,
                                     quantize_boundary=cfg.quantize_boundary,
                                     optimizer=self.optimizer)
-        self.planner = RevolutionPlanner(backend=cfg.solver_backend)
+        # the host engine is the oracle: None and "auto" plan with the
+        # NumPy solver at any ring size (not resource_opt's "auto", which
+        # takes the torch solver from 512 instances); "torch" solves on
+        # the sim's device
+        torch_planner = cfg.solver_backend == "torch"
+        self.planner = RevolutionPlanner(
+            backend=("numpy" if cfg.solver_backend in (None, "auto")
+                     else cfg.solver_backend),
+            device=self.device if torch_planner else None)
 
         n = budget.plane.n_sats
         self.sats: List[SatelliteState] = [
@@ -208,17 +220,14 @@ class ConstellationSim:
 
     # ------------------------------------------------------------------ run
     def run(self, engine: str = "host") -> List[PassRecord]:
-        """Run the configured passes on the host scheduler.
+        """Run the configured passes; ``engine`` picks the executor.
 
-        ``engine="device"`` (the reference's device-resident engines)
-        raises ``NotImplementedError``: those engines are the next slice
-        of the port (ROADMAP queue A).
+        ``"host"`` is this Python scheduler, the feature-complete oracle.
+        ``"device"`` hands a static ring to the device-resident engine
+        (:meth:`run_device`).
         """
         if engine == "device":
-            raise NotImplementedError(
-                "engine='device' is not ported yet (the device-resident "
-                "engines, sim/ and fleet/, are next in ROADMAP queue A); "
-                "use engine='host'")
+            return self.run_device()
         if engine != "host":
             raise ValueError(f"unknown engine {engine!r}; expected "
                              "'host' or 'device'")
@@ -336,11 +345,155 @@ class ConstellationSim:
             ckpt.save_handoff(self.cfg.handoff_dir, k, self.state.params_a,
                               meta={"pass": k})
 
+    # ------------------------------------------------- device-engine bridge
     def as_device_sim(self, n_revolutions: Optional[int] = None):
-        """The reference's bridge to its device engine: not ported yet."""
-        raise NotImplementedError(
-            "as_device_sim: the device-resident engines (sim/, fleet/) are "
-            "next in ROADMAP queue A")
+        """This sim's steady-state closed loop as a device engine on the
+        sim's device.
+
+        Preconditions (the device program is a *static* ring): no
+        join/leave events, ``fail_prob == 0``, no dead satellites, no
+        eclipse windows, no ``handoff_dir``, and a traceable provider
+        (:meth:`_require_traceable_provider`). The engine takes over the
+        current train state on ``run``; the fleet's batteries and the
+        data cursor carry over.
+        """
+        from repro_torch.sim.device_sim import (DeviceConstellationSim,
+                                                DeviceSimConfig)
+
+        cfg = self.cfg
+        blockers = []
+        if cfg.join_events or cfg.leave_events:
+            blockers.append("elastic membership (join/leave events)")
+        if cfg.fail_prob:
+            blockers.append("random failures (fail_prob > 0)")
+        if cfg.handoff_dir is not None:
+            blockers.append("checkpoint handoffs (handoff_dir)")
+        if any(not s.alive for s in self.sats):
+            blockers.append("dead satellites in the ring")
+        if cfg.eclipse is not None:
+            blockers.append("eclipse windows (fleet scenario feature)")
+        if blockers:
+            raise ValueError(
+                "the device engine runs static steady-state rings only; "
+                "host-oracle features in use: " + ", ".join(blockers))
+        self._require_traceable_provider()
+        n = len(self.sats)
+        if n_revolutions is None:
+            if cfg.n_passes % n:
+                raise ValueError(
+                    f"n_passes={cfg.n_passes} is not a whole number of "
+                    f"revolutions of the {n}-satellite ring")
+            n_revolutions = cfg.n_passes // n
+        dcfg = DeviceSimConfig(
+            n_revolutions=n_revolutions, lr=cfg.lr, optimizer=cfg.optimizer,
+            quantize_boundary=cfg.quantize_boundary,
+            battery_j=cfg.battery_j, recharge_w=cfg.recharge_w,
+            reserve_j=cfg.reserve_j,
+            max_steps_per_pass=cfg.max_steps_per_pass, seed=cfg.seed)
+        engine = DeviceConstellationSim(self.adapter, self.budget,
+                                        self.data_for_sat, dcfg,
+                                        state=self.state,
+                                        dtx_bits=self._ring_dtx_bits(n),
+                                        device=self.device)
+        # carry the host fleet's charge AND the data cursor over (a fresh
+        # sim starts full at batch 0; a chained delegation resumes from
+        # the drained batteries and the samples not yet consumed)
+        engine.energy = engine.energy._replace(battery_j=torch.tensor(
+            [s.battery_j for s in self.sats], dtype=torch.float32,
+            device=self.device))
+        engine._batch_idx = torch.tensor(self._batch_idx, dtype=torch.int32,
+                                         device=self.device)
+        return engine
+
+    def _require_traceable_provider(self) -> None:
+        """The device engine generates batches inside the revolution."""
+        if not getattr(self.data_for_sat, "traceable", False):
+            raise ValueError(
+                "the device engine generates batches inside the "
+                "revolution: data_for_sat must be a traceable provider "
+                "(traceable = True, e.g. repro_torch.sim.data."
+                "DeviceImageryShards), got "
+                f"{type(self.data_for_sat).__name__}")
+
+    def _ring_dtx_bits(self, n_slots: int) -> np.ndarray:
+        """Per-satellite measured boundary payloads, ``(n_slots,)`` bits
+        per item: every slot's upcoming batch measured shape-only (meta
+        tensors from the provider, segment A on the meta device), so no
+        batch is generated and no sample consumed."""
+        from repro_torch.sim.device_sim import meta_batch
+
+        batches = [meta_batch(self.data_for_sat, m, self._batch_idx)
+                   for m in range(n_slots)]
+        bits = ring_boundary_bits(self.adapter, batches,
+                                  self.cfg.quantize_boundary)
+        per_batch = np.asarray([next(iter(b.values())).shape[0]
+                                for b in batches], np.float64)
+        return bits / per_batch
+
+    def run_device(self) -> List[PassRecord]:
+        """Delegate the whole run to the device engine, then fold its
+        telemetry back into host form (``records``, ``sats``, ``state``,
+        the data cursor) so ``summary()`` sees one view whatever the
+        engine. Static rings only: an elastic ring (join/leave events,
+        ``fail_prob``, dead satellites, eclipses) needs the fleet engine,
+        which is not ported yet."""
+        cfg = self.cfg
+        if cfg.handoff_dir is not None:
+            raise ValueError(
+                "the device engine runs the handoff as the state it "
+                "carries; persisting handoff checkpoints (handoff_dir) is "
+                "a host-engine feature")
+        if (cfg.join_events or cfg.leave_events or cfg.fail_prob
+                or cfg.eclipse is not None
+                or any(not s.alive for s in self.sats)):
+            raise NotImplementedError(
+                "run(engine='device') on an elastic ring (join/leave "
+                "events, fail_prob, dead satellites or eclipses) needs the "
+                "fleet engine, the next slice of the port (ROADMAP queue "
+                "A, the fleet slice); use engine='host'")
+        engine = self.as_device_sim()
+        self.device_engine = engine          # kept for inspection/tests
+        res = engine.run(stream_telemetry=True)
+        self.state = engine.state
+        self._batch_idx = int(engine._batch_idx)
+
+        plan = res.plan
+        k0 = len(self.records)
+        R, n = res.action.shape
+        for r in range(R):
+            for s in range(n):
+                self.records.append(self._plan_record(
+                    k0 + r * n + s, s, int(res.action[r, s]),
+                    float(res.loss[r, s]), float(res.battery_j[r, s]),
+                    plan, s))
+        for s, host_sat in enumerate(self.sats):
+            host_sat.battery_j = float(res.energy.battery_j[s])
+            host_sat.passes_served += int(res.energy.passes_served[s])
+            host_sat.energy_spent_j += float(res.energy.energy_spent_j[s])
+        return self.records
+
+    @staticmethod
+    def _plan_record(pass_idx: int, sat_id: int, code: int, loss: float,
+                     battery_j: float, plan, sel) -> PassRecord:
+        """One engine telemetry entry as a :class:`PassRecord`; ``sel``
+        indexes the plan's row for this slot."""
+        from repro_torch.sim.device_sim import ACTION_NAMES, ACTION_SKIPPED
+
+        if code == ACTION_SKIPPED:
+            return PassRecord(pass_idx, sat_id, "skipped_energy",
+                              d_isl_bits=float(plan.d_isl_bits[sel]),
+                              battery_j=battery_j)
+        return PassRecord(
+            pass_idx, sat_id, ACTION_NAMES[code], loss=loss,
+            kept_fraction=float(plan.kept_fraction[sel]),
+            e_total_j=float(plan.e_total_j[sel]),
+            e_proc_j=float(plan.e_proc_j[sel]),
+            e_comm_j=float(plan.e_comm_j[sel]),
+            e_isl_j=float(plan.e_isl_j[sel]),
+            t_total_s=float(plan.t_total_s[sel]),
+            d_isl_bits=float(plan.d_isl_bits[sel]),
+            n_items=float(plan.n_items_kept[sel]),
+            battery_j=battery_j)
 
     # ------------------------------------------------------------- reporting
     def summary(self) -> Dict[str, Any]:

@@ -48,8 +48,10 @@ call.
 
 This is the port's copy of the reference's NumPy solver
 (``repro/core/resource_opt.py``), held against it in the tests. The
-reference also has a JAX backend; its device counterpart comes with the
-port's device engines (ROADMAP queue A), so ``backend="jax"`` raises.
+reference's JAX backend has a tensor counterpart,
+:mod:`repro_torch.core.resource_opt_torch`: every batch entry point takes
+``backend="numpy" | "torch" | "auto"`` and a ``device`` for the torch
+backend (the card unless the caller asks for the CPU). ``"jax"`` raises.
 """
 from __future__ import annotations
 
@@ -360,16 +362,37 @@ class BatchSolveReport:
                            float(self.kkt_residual[i]), 0, times)
 
 
-def _check_backend(backend: Optional[str]) -> None:
-    """The port solves on the host with NumPy: ``None``, ``"auto"`` and
-    ``"numpy"`` all mean that."""
+# "auto" picks the torch backend at this batch size (the reference's
+# crossover for its JAX backend, ``_AUTO_MIN_JAX_BATCH``), or whenever a
+# CUDA device is asked for.
+_AUTO_MIN_TORCH_BATCH = 512
+
+
+def _resolve_backend(backend: Optional[str], n_instances: int,
+                     device=None) -> Tuple[str, Optional[str]]:
+    """The user's backend choice (or "auto") as ``("numpy", None)`` or
+    ``("torch", device)``. An explicit ``"torch"`` runs on ``device``,
+    the card by default; "auto" runs the torch backend on the device
+    asked for, else on the card where there is one."""
     if backend == "jax":
         raise ValueError(
-            "backend='jax': the device-resident problem-(13) solver is not "
-            "ported yet (ROADMAP queue A, device engines); use 'numpy'")
-    if backend not in (None, "auto", "numpy"):
+            "backend='jax' is the reference's; the port's device solver "
+            "is backend='torch' (repro_torch.core.resource_opt_torch)")
+    if backend not in (None, "auto", "numpy", "torch"):
         raise ValueError(f"unknown solver backend {backend!r}; expected "
-                         "'numpy' or 'auto'")
+                         "'numpy', 'torch' or 'auto'")
+    if backend == "numpy":
+        return "numpy", None
+    if backend == "torch":
+        return "torch", "cuda" if device is None else device
+    import torch
+    if device is not None and torch.device(device).type == "cuda":
+        return "torch", device
+    if n_instances >= _AUTO_MIN_TORCH_BATCH:
+        if device is None:
+            device = "cuda" if torch.cuda.is_available() else "cpu"
+        return "torch", device
+    return "numpy", None
 
 
 def _gather_coeff_arrays(blist: Sequence[PassBudget],
@@ -436,7 +459,8 @@ def _gather_coeff_arrays(blist: Sequence[PassBudget],
 def solve_batch(budgets: Union[PassBudget, Sequence[PassBudget]],
                 costs: Union[SplitCosts, Sequence[SplitCosts]],
                 tol: float = 1e-10, max_iters: int = 80,
-                backend: Optional[str] = None) -> BatchSolveReport:
+                backend: Optional[str] = None,
+                device=None) -> BatchSolveReport:
     """Solve problem (13) for B (budget, costs) instances at once.
 
     ``budgets`` and ``costs`` may each be a single object or a sequence;
@@ -446,12 +470,17 @@ def solve_batch(budgets: Union[PassBudget, Sequence[PassBudget]],
     so the cost is O(iterations) vector ops total, not O(B · iterations)
     Python arithmetic.
 
-    ``backend``: ``None``, ``"auto"`` or ``"numpy"`` (this module);
-    ``"jax"`` raises ``ValueError`` (see the module docstring).
+    ``backend``: ``"numpy"`` (this module), ``"torch"`` (float64 on
+    ``device``, :mod:`repro_torch.core.resource_opt_torch`) or
+    ``"auto"``/None (see :func:`_resolve_backend`).
     """
-    _check_backend(backend)
     blist, clist = _broadcast_instances(budgets, costs)
     B = len(blist)
+    backend, device = _resolve_backend(backend, B, device)
+    if backend == "torch":
+        from repro_torch.core import resource_opt_torch
+        return resource_opt_torch.solve_batch_torch(
+            blist, clist, tol=tol, max_iters=max_iters, device=device)
 
     # ---- gather per-instance coefficients (cheap Python setup loop) ----
     arrs = _gather_coeff_arrays(blist, clist)
@@ -618,7 +647,8 @@ def solve_with_shedding_batch(
         costs: Union[SplitCosts, Sequence[SplitCosts]],
         min_fraction: float = 0.05,
         tol: float = 1e-4,
-        backend: Optional[str] = None) -> BatchSheddingReport:
+        backend: Optional[str] = None,
+        device=None) -> BatchSheddingReport:
     """If (13) is infeasible, the largest batch fraction that fits, for
     B instances at once.
 
@@ -629,11 +659,13 @@ def solve_with_shedding_batch(
     then ONE :func:`solve_batch` call allocates every instance at its
     kept item count.  This is the planner-scale path: a whole ring
     revolution's shedding decisions cost one batched solve.  ``backend``
-    is checked as in :func:`solve_batch`.
+    and ``device`` select that solve's implementation (see
+    :func:`solve_batch`); the shedding that stays on the device is
+    :func:`repro_torch.core.resource_opt_torch.shed_and_solve_coeffs`.
     """
-    _check_backend(backend)
     blist, clist = _broadcast_instances(budgets, costs)
     B = len(blist)
+    _resolve_backend(backend, B, device)          # validate before work
 
     arrs = _gather_coeff_arrays(blist, clist)
     t_min_sum = arrs["tmin_p"].sum(axis=1) + arrs["tmin_c"].sum(axis=1)
@@ -660,7 +692,7 @@ def solve_with_shedding_batch(
     scaled = [b if f == 1.0 else dataclasses.replace(b,
                                                      n_items=b.n_items * f)
               for b, f in zip(blist, frac)]
-    rep = solve_batch(scaled, clist, backend=backend)
+    rep = solve_batch(scaled, clist, backend=backend, device=device)
     n_kept = np.array([b.n_items for b in blist]) * frac
     return BatchSheddingReport(rep, frac, n_kept)
 
@@ -671,7 +703,7 @@ def solve_with_shedding_batch(
 
 def best_split_batch(budget: PassBudget,
                      candidates: Sequence[SplitCosts],
-                     backend: Optional[str] = None
+                     backend: Optional[str] = None, device=None
                      ) -> Tuple[SplitCosts, SolveReport]:
     """Jointly pick the cut point ℓ and the allocation — one batched solve.
 
@@ -682,14 +714,15 @@ def best_split_batch(budget: PassBudget,
     cands = list(candidates)
     if not cands:
         raise ValueError("no split candidates")
-    rep = solve_batch(budget, cands, backend=backend)
+    rep = solve_batch(budget, cands, backend=backend, device=device)
     e = np.where(rep.feasible, rep.e_total, np.inf)
     i = int(np.argmin(e))
     if np.isfinite(e[i]):
         return cands[i], rep.report_at(i)
     # nothing feasible: fall back to max shedding on the least-bad plan —
     # one vectorized kept-fraction bisection + solve across all cuts
-    shed = solve_with_shedding_batch(budget, cands, backend=backend)
+    shed = solve_with_shedding_batch(budget, cands, backend=backend,
+                                     device=device)
     j = int(np.argmax(shed.kept_fraction))
     return cands[j], shed.at(j).report
 

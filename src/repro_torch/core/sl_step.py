@@ -190,20 +190,58 @@ def ring_boundary_bits(adapter: SplitAdapter, batches: Sequence[Dict],
 
 def make_pass_step(adapter: SplitAdapter, optimizer, *,
                    quantize_boundary: bool = False):
-    """One SL train step with its optimizer update:
-    ``pass_step(state, batch) -> (new_state, loss)``.
+    """The masked SL step shared by the host pass engine and the device
+    engine: ``pass_step(state, batch, valid=True) -> (new_state, loss)``.
 
-    Runs both grads and the update on an
+    Runs both grads and the optimizer update on an
     :class:`~repro_torch.core.train_state.SLTrainState` (in place; the
-    input state is consumed).
+    input state is consumed) and gates it on ``valid``: an invalid step
+    leaves params, optimizer state and step counter bit for bit as they
+    were and reports a NaN loss. ``valid`` is a host bool
+    (:func:`make_sl_pass` passes True) or a 0-d bool tensor decided on
+    the device (:mod:`repro_torch.sim.device_sim`, whose reserve skips
+    and beyond-allocation steps mask this way); a tensor is never read
+    back to the host.
     """
     sl_grads = _make_sl_grads(adapter, quantize_boundary)
 
-    def pass_step(state, batch):
+    def pass_step(state, batch, valid=True):
         loss, g_a, g_b, _ = sl_grads(state.params_a, state.params_b, batch)
-        return state.apply_updates(g_a, g_b, optimizer), loss
+        state = state.apply_updates(g_a, g_b, optimizer, where=valid)
+        if isinstance(valid, torch.Tensor):
+            loss = torch.where(valid, loss, torch.nan)
+        elif not valid:
+            loss = torch.full_like(loss, torch.nan)
+        return state, loss
 
     return pass_step
+
+
+def dedupe_state_buffers(state: SLTrainState) -> SLTrainState:
+    """A live state whose leaves share no memory: a leaf that aliases an
+    earlier one (e.g. a tied LM embedding shared between segments A and
+    B) is copied, since the in-place update would otherwise apply twice
+    to one buffer, and the segments diverge after the first update
+    anyway. Used by the device engine before it takes a state over."""
+    from repro_torch.core.train_state import _leaves, _rebuild
+
+    state._require_live("dedupe_state_buffers")
+    seen, copied = set(), []
+
+    def uniq(t):
+        if t.numel() and t.data_ptr() in seen:
+            copied.append(t)
+            return t.clone()
+        seen.add(t.data_ptr())
+        return t
+
+    fields = [state.params_a, state.params_b, state.opt_a, state.opt_b,
+              state.step]
+    new = SLTrainState(*_rebuild(fields, iter(
+        [uniq(t) for t in _leaves(fields)])))
+    if not copied:                 # the leaves are the same tensors
+        new._flat = state._flat
+    return new
 
 
 @dataclasses.dataclass
@@ -250,7 +288,7 @@ def make_sl_pass(adapter: SplitAdapter, *, quantize_boundary: bool = False,
         payload = measure_payload(batches[0])
         losses = []
         for batch in batches:
-            state, loss = step(state, batch)
+            state, loss = step(state, batch, True)
             losses.append(loss)
         return SLPassResult(losses=torch.stack(losses), state=state,
                             n_steps=len(batches), dtx_bits_down=payload,

@@ -8,9 +8,16 @@ problem (13) allocates (f, p) per pass; the ISL handoff is an
 integrity-checked checkpoint; random failures and battery limits
 exercise the restore and skip policies.
 
+``--engine device`` runs a static ring (no failures, joins or handoff
+checkpoints; whole revolutions of the 25 satellites) on the
+device-resident engine (:mod:`repro_torch.sim.device_sim`), with batches
+generated on the device.
+
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.constellation \
       --model resnet18 --img 224 --passes 6 --device cuda
+  PYTHONPATH=src python -m repro_torch.launch.constellation \
+      --engine device --passes 25 --device cuda
 """
 from __future__ import annotations
 
@@ -22,6 +29,7 @@ from repro_torch.core.energy import PassBudget
 from repro_torch.core.sl_step import autoencoder_adapter, resnet18_adapter
 from repro_torch.core.splitting import RESNET18_PAPER_CUTS
 from repro_torch.data.synthetic import ImageryShards
+from repro_torch.sim.data import DeviceImageryShards
 
 
 def main(argv=None):
@@ -30,6 +38,9 @@ def main(argv=None):
                     default="autoencoder")
     ap.add_argument("--img", type=int, default=64)
     ap.add_argument("--passes", type=int, default=25)
+    ap.add_argument("--engine", choices=("host", "device"), default="host",
+                    help="host scheduler, or the device-resident loop "
+                    "(static ring, whole revolutions)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (hand-written kernels) or cpu (their plain "
                     "PyTorch versions)")
@@ -40,17 +51,25 @@ def main(argv=None):
     else:
         adapter = resnet18_adapter(cut=RESNET18_PAPER_CUTS["l2"],
                                    img=args.img)
-    shards = ImageryShards(img=args.img, batch=8, n_shards=27)
-    with tempfile.TemporaryDirectory() as handoff_dir:
+    knobs = dict(n_passes=args.passes, optimizer="sgd",
+                 quantize_boundary=True, battery_j=2_000.0, recharge_w=5.0,
+                 reserve_j=100.0)
+    if args.engine == "device":
         sim = ConstellationSim(
-            adapter, PassBudget(n_items=64), shards.batch_at,
-            cfg=ConstellationConfig(
-                n_passes=args.passes, optimizer="sgd",
-                quantize_boundary=True, fail_prob=0.08, battery_j=2_000.0,
-                recharge_w=5.0, reserve_j=100.0, handoff_dir=handoff_dir,
-                join_events={12: 2}),
-            device=args.device)
-        records = sim.run()
+            adapter, PassBudget(n_items=64),
+            DeviceImageryShards(img=args.img, batch=8, device=args.device),
+            cfg=ConstellationConfig(**knobs), device=args.device)
+        records = sim.run(engine="device")
+    else:
+        shards = ImageryShards(img=args.img, batch=8, n_shards=27)
+        with tempfile.TemporaryDirectory() as handoff_dir:
+            sim = ConstellationSim(
+                adapter, PassBudget(n_items=64), shards.batch_at,
+                cfg=ConstellationConfig(fail_prob=0.08,
+                                        handoff_dir=handoff_dir,
+                                        join_events={12: 2}, **knobs),
+                device=args.device)
+            records = sim.run()
 
     print(f"{'pass':>4} {'sat':>4} {'action':15s} {'loss':>8} "
           f"{'E_total[J]':>11} {'E_comm[J]':>10} {'D_ISL[Mb]':>10}")

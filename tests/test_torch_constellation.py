@@ -85,11 +85,19 @@ def test_solver_matches_reference_numpy_backend():
 
 def test_solver_backends():
     b, c = energy.PassBudget(), splitting.resnet18_plan().costs_at(5)
+    want = resource_opt.solve_batch(b, c, backend="numpy")
     for ok in (None, "auto", "numpy"):
         resource_opt.solve_batch(b, c, backend=ok)
-    with pytest.raises(ValueError, match="not ported"):
+    # the device solver, on the CPU when asked for
+    got = resource_opt.solve_batch(b, c, backend="torch", device="cpu")
+    np.testing.assert_allclose(got.e_total, want.e_total, rtol=1e-8)
+    shed = resource_opt.solve_with_shedding_batch(b, c, backend="torch",
+                                                  device="cpu")
+    assert shed.kept_fraction[0] == 1.0
+    # "jax" is the reference's name: the message names the port's
+    with pytest.raises(ValueError, match="backend='torch'"):
         resource_opt.solve_batch(b, c, backend="jax")
-    with pytest.raises(ValueError, match="not ported"):
+    with pytest.raises(ValueError, match="backend='torch'"):
         resource_opt.solve_with_shedding_batch(b, c, backend="jax")
     with pytest.raises(ValueError, match="unknown"):
         resource_opt.solve_batch(b, c, backend="tpu")
@@ -154,19 +162,67 @@ def test_four_satellite_ring_matches_reference(tmp_path):
 
 
 def test_device_engine_is_not_ported_and_cpu_must_be_asked(monkeypatch):
+    """The device engine takes static rings; an elastic ring needs the
+    fleet engine, which is not ported yet."""
+    from repro_torch.sim.data import DeviceImageryShards
+
     adapter = sl_step.autoencoder_adapter(img=32)
     shards = ImageryShards(img=32, batch=2)
+    dshards = DeviceImageryShards(img=32, batch=2, device="cpu")
+    for kw in (dict(fail_prob=0.1), dict(join_events={1: 1}),
+               dict(leave_events={1: 0})):
+        sim = constellation.ConstellationSim(
+            adapter, energy.PassBudget(n_items=4), dshards,
+            constellation.ConstellationConfig(n_passes=25, **kw),
+            device="cpu")
+        with pytest.raises(NotImplementedError, match="fleet slice"):
+            sim.run(engine="device")
+        with pytest.raises(ValueError, match="static steady-state"):
+            sim.as_device_sim()
     sim = constellation.ConstellationSim(
         adapter, energy.PassBudget(n_items=4), shards.batch_at,
-        constellation.ConstellationConfig(n_passes=1), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        constellation.ConstellationConfig(n_passes=25), device="cpu")
+    with pytest.raises(ValueError, match="traceable"):
         sim.run(engine="device")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        sim.as_device_sim()
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="cuda"):
         constellation.ConstellationSim(adapter, energy.PassBudget(),
                                        shards.batch_at)
+    from repro_torch.sim.device_sim import DeviceConstellationSim
+    with pytest.raises(RuntimeError, match="cuda"):
+        DeviceConstellationSim(adapter, energy.PassBudget(),
+                               DeviceImageryShards(img=32, batch=2))
+
+
+def test_host_engine_plans_with_numpy_at_any_ring_size(monkeypatch):
+    """The host engine is the oracle: at 512 satellites and more (where
+    resource_opt's "auto" takes the torch solver) None and "auto" still
+    plan with NumPy; only "torch" solves with the torch solver, on the
+    sim's device."""
+    from repro_torch.core import resource_opt_torch
+
+    adapter = sl_step.autoencoder_adapter(img=32)
+    shards = ImageryShards(img=32, batch=2)
+    budget = energy.PassBudget(plane=orbits.OrbitalPlane(n_sats=600),
+                               n_items=4)
+
+    def refuse(*a, **k):
+        raise AssertionError("the host engine planned with the torch solver")
+
+    monkeypatch.setattr(resource_opt_torch, "solve_batch_torch", refuse)
+    monkeypatch.setattr(resource_opt_torch, "shed_and_solve_coeffs", refuse)
+    for backend in (None, "auto"):
+        sim = constellation.ConstellationSim(
+            adapter, budget, shards.batch_at, constellation.ConstellationConfig(
+                n_passes=1, solver_backend=backend), device="cpu")
+        assert (sim.planner.backend, sim.planner.device) == ("numpy", None)
+        rec, = sim.run()
+        assert rec.action == "trained" and sim.planner.solve_calls == 1
+    sim = constellation.ConstellationSim(
+        adapter, budget, shards.batch_at, constellation.ConstellationConfig(
+            n_passes=1, solver_backend="torch"), device="cpu")
+    assert sim.planner.backend == "torch"
+    assert sim.planner.device == torch.device("cpu")
 
 
 def test_handoff_round_trip_and_tamper_detection(tmp_path):

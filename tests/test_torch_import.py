@@ -28,7 +28,13 @@ def test_modules_and_chip_smoke_import_without_jax():
             "repro_torch.kernels.mamba_scan", "repro_torch.configs.zamba2_1_2b",
             "repro_torch.kernels.mlstm_scan", "repro_torch.configs.xlstm_1_3b",
             "repro_torch.core.constellation", "repro_torch.ckpt.checkpoint",
-            "repro_torch.launch.constellation"} <= set(mods)
+            "repro_torch.launch.constellation", "repro_torch.sim",
+            "repro_torch.sim.device_sim", "repro_torch.sim.data",
+            "repro_torch.sim.energy_state", "repro_torch.obs",
+            "repro_torch.obs.ring", "repro_torch.obs.metrics",
+            "repro_torch.core.resource_opt_torch",
+            "repro_torch.serve_fleet.engine", "repro_torch.utils.bucketing",
+            "repro_torch.launch.device_sim"} <= set(mods)
     code = ("import sys\n"
             "sys.modules['jax'] = None\n"
             "sys.modules['repro'] = None\n"
@@ -59,7 +65,7 @@ def test_source_imports_neither_jax_nor_repro(path):
 
 def test_entry_points_refuse_cpu_unless_asked(monkeypatch):
     from repro_torch import configs
-    from repro_torch.launch import constellation, serve
+    from repro_torch.launch import constellation, device_sim, serve
     from repro_torch.models import lm
     from repro_torch.serve.engine import DecodeEngine
     from repro_torch.serve_fleet.engine import SplitDecodeEngine
@@ -81,6 +87,13 @@ def test_entry_points_refuse_cpu_unless_asked(monkeypatch):
     summary = constellation.main(["--img", "32", "--passes", "2",
                                   "--device", "cpu"])
     assert summary["passes"] == 2 and summary["trained"] >= 1
+    with pytest.raises(RuntimeError, match="cuda"):
+        constellation.main(["--img", "32", "--engine", "device"])
+    summary = constellation.main(["--img", "32", "--passes", "25",
+                                  "--engine", "device", "--device", "cpu"])
+    assert summary["passes"] == 25 and summary["trained"] == 25
+    with pytest.raises(RuntimeError, match="cuda"):
+        device_sim.main(["--small"])
 
 
 def test_chip_smoke_fails_without_a_card():
