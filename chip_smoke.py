@@ -57,7 +57,17 @@ Phases, each fatal on failure:
      32 px, batch 2, 200 J batteries, int8 boundary), streamed one host
      sync per revolution, reserve skips by the third revolution, the
      quantizer held bit for bit on the ring's own z and dz, and the host
-     engine timed on the first 250 passes of the same ring.
+     engine timed on the first 250 passes of the same ring;
+  9. the fleet engine (repro_torch.fleet): (a) two planes of the Table-I
+     ring at phase 8a's width for one revolution, with a join, a leave,
+     seeded failures, reserve skips and masked steps, against the host
+     engine plane by plane (equal actions and slots, losses and batteries
+     at 8a's tolerances), every plane's params and momentum equal to the
+     hosts' mean after the boundary, one sync for the revolution, 2
+     quantizer launches per executed step, with passes/s, steps/s, the
+     host engines' time and the idle share; (b) the baseline smoke of
+     ``python -m repro_torch.fleet`` (2 planes x 8 satellites, 2
+     revolutions) on the card.
 Each phase prints its elapsed time. Every profile is framed by marker
 kernels (cuda_events), since torch.profiler can drop a trace's first
 kernels.
@@ -90,12 +100,15 @@ from repro_torch.core.constellation import (ConstellationConfig,  # noqa: E402
 from repro_torch.core.energy import PassBudget  # noqa: E402
 from repro_torch.core.orbits import OrbitalPlane  # noqa: E402
 from repro_torch.core.splitting import RESNET18_PAPER_CUTS  # noqa: E402
-from repro_torch.core.train_state import SLTrainState  # noqa: E402
+from repro_torch.core.train_state import SLTrainState, _leaves  # noqa: E402
 from repro_torch.data.synthetic import ImageryShards  # noqa: E402
+from repro_torch.fleet import FleetConfig, FleetEngine  # noqa: E402
+from repro_torch.fleet.engine import _smoke as fleet_smoke  # noqa: E402
 from repro_torch.kernels import (_build, decode_attn, flash_attn,  # noqa: E402
                                  mamba_scan, mlstm_scan, ops, split_quant)
 from repro_torch.models import lm  # noqa: E402
 from repro_torch.models.param import map_tree  # noqa: E402
+from repro_torch.obs.ring import EV_EXCHANGE  # noqa: E402
 from repro_torch.train.optimizer import resolve_optimizer  # noqa: E402
 from repro_torch.utils.bucketing import bucket_size  # noqa: E402
 from repro_torch.utils.treeutil import tree_leaves  # noqa: E402
@@ -103,9 +116,10 @@ from repro_torch.models.layers import Ctx  # noqa: E402
 from repro_torch.serve.engine import DecodeEngine, Request  # noqa: E402
 from repro_torch.serve_fleet.engine import (SplitDecodeEngine,  # noqa: E402
                                             serve_cost)
-from repro_torch.sim import (ACTION_SKIPPED, ACTION_TRAINED,  # noqa: E402
-                             DeviceConstellationSim, DeviceImageryShards,
-                             DeviceSimConfig, plan_ring_passes)
+from repro_torch.sim import (ACTION_NAMES, ACTION_SKIPPED,  # noqa: E402
+                             ACTION_TRAINED, DeviceConstellationSim,
+                             DeviceImageryShards, DeviceSimConfig,
+                             plan_ring_passes)
 
 # Published H100 SXM peaks (NVIDIA data sheet; dense, at 700 W).
 HBM_BYTES_PER_S = 3.35e12
@@ -687,7 +701,7 @@ def serve_full_width(arch, label):
     return launches
 
 
-def cuda_events(run, cpu=True, whole=None):
+def cuda_events(run, cpu=True, whole=None, retake=True):
     """The kernels (CUDA events by name) of torch.profiler's trace of
     ``run()``. The profiler has lost the first kernels of a trace on the
     H100 (all of a trace's quantizer launches once, 1 of 20 another time,
@@ -698,13 +712,14 @@ def cuda_events(run, cpu=True, whole=None):
     false, a few ms) is taken again, each time of a new ``run()``, up to
     3 traces, while no marker is left before or after every other kernel
     or ``whole(kernels)`` is false; a CPU+CUDA trace (a revolution, a
-    few prefills: a minute to parse) is taken once and a missing frame
-    reported. The last trace is returned as it is, for the caller's
-    checks to judge."""
+    few prefills: a minute to parse), or any trace with ``retake`` false
+    (a fleet revolution's ~120k kernels), is taken once and a missing
+    frame reported. The last trace is returned as it is, for the
+    caller's checks to judge."""
     from torch.profiler import ProfilerActivity, profile
     acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if cpu else [])
     cuda = torch.autograd.DeviceType.CUDA
-    attempts = 1 if cpu else 3
+    attempts = 3 if retake and not cpu else 1
     for attempt in range(attempts):
         with profile(activities=acts) as prof:
             time.sleep(0.02)
@@ -1049,10 +1064,12 @@ def quant_kernels(kern):
             sum(getattr(e, "self_device_time_total", 0) for e in ev) / 1e3)
 
 
-def profile_revolution(eng, label):
-    """One more revolution of ``eng``, unprofiled (host clock, ending in
-    the engine's telemetry read) then profiled: card time by kernel, idle
-    share, and the quantizer's launches seen by the profiler."""
+def profile_revolution(eng, label, steps, cpu=True):
+    """One more revolution of ``eng`` (``steps`` executed SL steps),
+    unprofiled (host clock, ending in the engine's telemetry read) then
+    profiled once (``cpu``: CPU+CUDA, else a kernel-only trace): card
+    time by kernel, idle share, and the quantizer's launches seen by the
+    profiler, which hold the trace to the wrapper's count."""
     t0 = time.perf_counter()
     eng.run(1)
     wall = time.perf_counter() - t0
@@ -1063,14 +1080,13 @@ def profile_revolution(eng, label):
         n0 = split_quant.quantize_dequantize.launches
         eng.run(1)
         counted = split_quant.quantize_dequantize.launches - n0
-    kern = cuda_events(run)
+    kern = cuda_events(run, cpu=cpu, retake=False)
     dev_us = lambda e: getattr(e, "self_device_time_total", 0)
     busy = sum(dev_us(e) for e in kern) / 1e3
     q_n, q_ms = quant_kernels(kern)
     check(busy > 0, "the profiler saw the revolution's kernels")
-    check(q_n == counted == 2 * eng.n_sats * eng.scan_steps,
+    check(q_n == counted == 2 * steps,
           f"quantizer launches: profiler {q_n}, wrapper {counted}")
-    steps = eng.n_sats * eng.scan_steps
     print(f"  profile of one revolution [{label}]: {wall * 1e3:.1f} ms host "
           f"clock (unprofiled), {busy:.1f} ms of card time, device idle "
           f"{max(0.0, 1 - busy / (wall * 1e3)):.1%}; per executed step "
@@ -1172,7 +1188,8 @@ def device_loop_full_width(label, numpy_gen_ms):
           f"passes x {steps - LOOP_STEPS} beyond the allocation; quantizer "
           f"launches {launches} = 2 x 25 passes x {steps} executed steps "
           f"(masked included), quantize_rows launches and copies {other}")
-    rev_wall, busy = profile_revolution(eng, label)
+    rev_wall, busy = profile_revolution(eng, label,
+                                        eng.n_sats * eng.scan_steps)
 
     # batch generation on the card (per batch) beside phase 5's NumPy
     sat, idx = torch.arange(25, device="cuda")[3:4], eng._batch_idx + 0
@@ -1314,6 +1331,167 @@ def device_loop_1000(label):
     return launches
 
 
+# Phase 9a: the fleet engine at phase 8a's width: 2 planes of the Table-I
+# ring for one revolution, a join at pass 3 and a leave at pass 5, seeded
+# failures (seed 1 at 0.08: plane 0 fails at pass 9, plane 1 at pass 7),
+# satellites 3 and 17 of each plane below reserve (skips), 6 SL steps of 8
+# executed a pass (masked steps), planes averaged at the boundary; held
+# against the host engine per plane (seed + p, data ids offset p * M).
+FLEET_PLANES, FLEET_SEED, FLEET_FAIL = 2, 1, 0.08
+FLEET_EVENTS = dict(join_events={3: 1}, leave_events={5: 1})
+
+
+def fleet_full_width(label):
+    """Phase 9a: two full-width planes on the fleet engine against the host
+    engine, plane by plane, and the average at the revolution boundary."""
+    adapter = sl_step.resnet18_adapter(cut=RESNET18_PAPER_CUTS["l2"],
+                                       img=224)
+    shards = DeviceImageryShards(img=224, batch=RING_BATCH, device="cuda")
+    budget = PassBudget()                      # Table I: 25 sats, 400 items
+    n0 = budget.plane.n_sats
+    knobs = dict(optimizer="sgd", quantize_boundary=True,
+                 max_steps_per_pass=LOOP_STEPS, recharge_w=LOOP_RECHARGE_W,
+                 fail_prob=FLEET_FAIL, **FLEET_EVENTS)
+    battery0 = [LOOP_LOW_J if i in LOOP_LOW_SATS else 5_000.0
+                for i in range(n0)]
+    opt = resolve_optimizer("sgd")
+    init = adapter.init(torch.Generator(device="cuda").manual_seed(
+        FLEET_SEED))
+
+    def fresh():
+        return SLTrainState.create(*[map_tree(torch.clone, t) for t in init],
+                                   opt)
+
+    fleet = FleetEngine(adapter, budget, shards, FleetConfig(
+        n_planes=FLEET_PLANES, n_revolutions=1, seed=FLEET_SEED,
+        avg_every=1, **knobs), state=fresh(), battery0=battery0,
+        device="cuda")
+    M, K = fleet.n_slots, fleet.scan_steps
+    hosts = []
+    for p in range(FLEET_PLANES):
+        host = ConstellationSim(
+            adapter, budget, lambda s, i, p=p: shards(p * M + s, i),
+            ConstellationConfig(n_passes=n0, seed=FLEET_SEED + p, **knobs),
+            device="cuda")
+        host.state = fresh()
+        for i in LOOP_LOW_SATS:
+            host.sats[i].battery_j = LOOP_LOW_J
+        hosts.append(host)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for host in hosts:
+            host.run()
+        torch.cuda.synchronize()
+        host_wall = time.perf_counter() - t0
+        split_quant.quantize_dequantize.launches = 0
+        split_quant.quantize_rows.launches = 0
+        split_quant.copies = 0
+        t0 = time.perf_counter()
+        res = fleet.run(stream_telemetry=True)    # ends in its one read
+        wall = time.perf_counter() - t0
+        launches = split_quant.quantize_dequantize.launches
+        other = (split_quant.quantize_rows.launches, split_quant.copies)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+
+    executed = FLEET_PLANES * n0 * K
+    check(launches == 2 * executed > 0 and other == (0, 0),
+          f"quantizer launches {launches} != 2 x {FLEET_PLANES} planes x "
+          f"{n0} passes x {K} steps, or quantize_rows launches and copies "
+          f"{other}")
+    check(fleet.traces == 1 and fleet.device_calls == fleet.host_syncs == 1,
+          f"one build, dispatch and sync: {fleet.traces}, "
+          f"{fleet.device_calls}, {fleet.host_syncs}")
+    errs = dict(loss=0.0, battery=0.0)
+    for p, host in enumerate(hosts):
+        acts = [r.action for r in host.records]
+        got = [ACTION_NAMES[int(a)] for a in res.action[p]]
+        check(got == acts, f"plane {p} actions: host {acts}, fleet {got}")
+        check([r.sat_id for r in host.records] == res.sat[p].tolist(),
+              f"plane {p} slots: host {[r.sat_id for r in host.records]}, "
+              f"fleet {res.sat[p].tolist()}")
+        for h, dl, db in zip(host.records, res.loss[p], res.battery_j[p]):
+            for key, hv, dv in (("loss", h.loss, dl),
+                                ("battery", h.battery_j, db)):
+                if hv is None:
+                    check(not np.isfinite(dv), "an untrained pass has no loss")
+                    continue
+                rtol, atol = LOOP_TOL[key]
+                check(abs(dv - hv) <= atol + rtol * abs(hv),
+                      f"plane {p} {key}: fleet {dv} host {hv}")
+                errs[key] = max(errs[key], abs(dv - hv) / max(abs(hv), 1e-30))
+        spent = np.asarray([s.energy_spent_j for s in host.sats])
+        check(np.allclose(res.energy.energy_spent_j[p], spent,
+                          rtol=LOOP_TOL["e_total"][0], atol=1e-3),
+              f"plane {p} energy spent: fleet {res.energy.energy_spent_j[p]}"
+              f" host {spent}")
+    s = res.summary()
+    check(s["failed"] > 0 and s["skipped"] > 0 and s["trained"] > 0
+          and (res.sat == n0).any(),
+          f"failed, skipped, trained passes and the joiner served: {s}")
+    # after the boundary every plane holds the mean of the two host states
+    # (params and momentum)
+    mean_err = 0.0
+    host_leaves = [_leaves(h.state._fields()) for h in hosts]
+    for p, st in enumerate(res.state):
+        for got, *want in zip(_leaves(st._fields()), *host_leaves):
+            if not got.is_floating_point():
+                continue
+            mean = torch.stack(want).mean(dim=0)
+            rtol, atol = LOOP_TOL["loss"]
+            check(torch.allclose(got, mean, rtol=rtol, atol=atol),
+                  f"plane {p}: a leaf differs from the hosts' mean by "
+                  f"{(got - mean).abs().max().item():.3e}")
+            mean_err = max(mean_err, (got - mean).abs().max().item())
+    ev = fleet.recorder.events()
+    check(int((ev["kind"] == EV_EXCHANGE).sum()) == FLEET_PLANES,
+          "one exchange event per plane at the boundary")
+    valid = int(res.n_steps.sum())
+    passes = FLEET_PLANES * n0
+    print(f"fleet resnet18 224px cut l2 batch {RING_BATCH}, {FLEET_PLANES} "
+          f"planes x the 25-sat Table-I ring (+1 join at pass 3, a leave at "
+          f"pass 5, fail_prob {FLEET_FAIL} seed {FLEET_SEED}), one "
+          f"revolution, {LOOP_STEPS} SL steps of {K} executed a pass, sats "
+          f"{list(LOOP_LOW_SATS)} at {LOOP_LOW_J:g} J, int8 boundary, sgd, "
+          f"averaged at the boundary, TF32 off, cudnn.deterministic "
+          f"[{label}]")
+    for p in range(FLEET_PLANES):
+        print(f"  plane {p}: actions "
+              f"{[ACTION_NAMES[int(a)][:4] for a in res.action[p]]}; slots "
+              f"{res.sat[p].tolist()}")
+    print(f"  fleet == host engine per plane: actions and slots equal; "
+          f"largest relative difference loss {errs['loss']:.2e}, battery "
+          f"{errs['battery']:.2e}; after the boundary every plane's params "
+          f"and momentum within {mean_err:.2e} of the hosts' mean; "
+          f"{fleet.host_syncs} sync for the revolution (sync-debug 'error' "
+          f"around it); summary {s}")
+    print(f"  fleet: {passes} passes in {wall:.3f} s = {passes / wall:.2f} "
+          f"passes/s, {valid / wall:.2f} valid SL steps/s ({valid} valid of "
+          f"{executed} executed) incl. the telemetry read; host engines, "
+          f"same work: {host_wall:.3f} s = {valid / host_wall:.2f} steps/s "
+          f"[{label}]")
+    print(f"  quantizer launches {launches} = 2 x {FLEET_PLANES} planes x "
+          f"{n0} passes x {K} executed steps (masked included); "
+          f"quantize_rows launches and copies {other}")
+    profile_revolution(fleet, label, executed, cpu=False)
+    return launches
+
+
+def fleet_smoke_9b(label):
+    """Phase 9b: ``python -m repro_torch.fleet``'s smoke on the card (the
+    reference smoke's config: 2 planes x 8 satellites, 2 revolutions)."""
+    t0 = time.perf_counter()
+    s = fleet_smoke(device="cuda")
+    check(s["failed"] > 0 and s["skipped"] > 0 and s["trained"] > 0,
+          f"failed, skipped and trained passes: {s}")
+    print(f"  fleet smoke (2 x 8 sats, 2 revolutions, autoencoder 32 px) "
+          f"with its host engines: {time.perf_counter() - t0:.3f} s "
+          f"[{label}]")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1445,6 +1623,12 @@ def main() -> int:
     phase_done("phase 8a")
     paths["device_loop_1000"] = {"split_quant": device_loop_1000(smi)}
     phase_done("phase 8b")
+    torch.cuda.empty_cache()
+    paths["fleet_resnet18"] = {"split_quant": fleet_full_width(smi)}
+    torch.cuda.empty_cache()
+    phase_done("phase 9a")
+    fleet_smoke_9b(smi)
+    phase_done("phase 9b")
     print(f"launches on the main paths (B1: counted by its wrapper at each "
           f"launch; the device loop is eager, no graph): {paths}")
     launches = {n: sum(p.get(n, 0) for p in paths.values()) for n in WRAPPERS}

@@ -40,10 +40,10 @@ Fault / policy model:
     of, and 0 J on an eclipsed pass.
 
 ``run(engine="device")`` hands a static ring to the device-resident
-engine (:mod:`repro_torch.sim.device_sim`) and folds its telemetry back
-into :class:`PassRecord` form. Elastic rings (join/leave, failures, dead
-satellites, eclipses) go to the reference's fleet engine, which is the
-next slice of the port: here they raise ``NotImplementedError``.
+engine (:mod:`repro_torch.sim.device_sim`) and an elastic ring (join/leave,
+failures, dead satellites, eclipses) to the fleet engine
+(:mod:`repro_torch.fleet`) as a one-plane fleet, and folds the telemetry
+back into :class:`PassRecord` form.
 """
 from __future__ import annotations
 
@@ -96,6 +96,10 @@ class PassRecord:
 @dataclasses.dataclass
 class ConstellationConfig:
     n_passes: int = 25
+    # the reference's declared fields, read by neither package: the items
+    # per pass come from ``budget.n_items`` and the batch shape from the data
+    items_per_pass: float = 400.0        # Table I: images per satellite pass
+    batch_size: int = 8
     lr: float = 1e-2
     # "sgd" | "adamw" | an Optimizer instance (train/optimizer.py); a
     # name is resolved with lr=cfg.lr
@@ -115,7 +119,10 @@ class ConstellationConfig:
     # sequence of ids (multi-leave churn), resolved ``sid % len(sats)``
     leave_events: Dict[int, Any] = dataclasses.field(default_factory=dict)
     # orbital shadow windows gating solar recharge: any object with a
-    # ``sunlit(pass_idx, plane)`` method; None = permanent sunlight
+    # ``sunlit(pass_idx, plane)`` method taking ints, canonically a
+    # :class:`repro_torch.fleet.scenarios.EclipseConfig`; None = permanent
+    # sunlight. The device delegation hands it to the fleet engine, so
+    # both engines gate alike
     eclipse: Optional[Any] = None
     # Simulation-cost ceiling on steps per pass: the allocation itself
     # is uncapped (problem 13 decides the item budget); this bounds how
@@ -138,9 +145,9 @@ class ConstellationSim:
     plan. ``ImageryShards.batch_at`` satisfies this.
 
     The items per pass come from ``budget.n_items`` (Table I: 400) and
-    the batch shape from the data; the reference's config fields
-    ``items_per_pass`` and ``batch_size``, which nothing reads, are not
-    ported.
+    the batch shape from the data; the config fields ``items_per_pass``
+    and ``batch_size`` are accepted, as the reference declares them, and
+    read by nothing.
 
     ``device`` is where the model trains: ``"cuda"`` by default (raises
     without a card); pass ``"cpu"`` to run the plain path. The initial
@@ -223,8 +230,10 @@ class ConstellationSim:
         """Run the configured passes; ``engine`` picks the executor.
 
         ``"host"`` is this Python scheduler, the feature-complete oracle.
-        ``"device"`` hands a static ring to the device-resident engine
-        (:meth:`run_device`).
+        ``"device"`` hands the run to a device-resident engine: a static
+        ring to :mod:`repro_torch.sim.device_sim`, an elastic one (join or
+        leave events, ``fail_prob``, dead satellites, eclipses) to the
+        fleet engine (:meth:`run_device`).
         """
         if engine == "device":
             return self.run_device()
@@ -431,26 +440,22 @@ class ConstellationSim:
         return bits / per_batch
 
     def run_device(self) -> List[PassRecord]:
-        """Delegate the whole run to the device engine, then fold its
+        """Delegate the whole run to a device engine, then fold its
         telemetry back into host form (``records``, ``sats``, ``state``,
         the data cursor) so ``summary()`` sees one view whatever the
-        engine. Static rings only: an elastic ring (join/leave events,
-        ``fail_prob``, dead satellites, eclipses) needs the fleet engine,
-        which is not ported yet."""
+        engine. Static rings run on the single-ring engine, elastic ones
+        (join/leave events, ``fail_prob``, dead satellites, eclipses) on
+        the fleet engine (:meth:`_run_fleet_device`)."""
         cfg = self.cfg
+        if (cfg.join_events or cfg.leave_events or cfg.fail_prob
+                or cfg.eclipse is not None
+                or any(not s.alive for s in self.sats)):
+            return self._run_fleet_device()
         if cfg.handoff_dir is not None:
             raise ValueError(
                 "the device engine runs the handoff as the state it "
                 "carries; persisting handoff checkpoints (handoff_dir) is "
                 "a host-engine feature")
-        if (cfg.join_events or cfg.leave_events or cfg.fail_prob
-                or cfg.eclipse is not None
-                or any(not s.alive for s in self.sats)):
-            raise NotImplementedError(
-                "run(engine='device') on an elastic ring (join/leave "
-                "events, fail_prob, dead satellites or eclipses) needs the "
-                "fleet engine, the next slice of the port (ROADMAP queue "
-                "A, the fleet slice); use engine='host'")
         engine = self.as_device_sim()
         self.device_engine = engine          # kept for inspection/tests
         res = engine.run(stream_telemetry=True)
@@ -476,9 +481,14 @@ class ConstellationSim:
     def _plan_record(pass_idx: int, sat_id: int, code: int, loss: float,
                      battery_j: float, plan, sel) -> PassRecord:
         """One engine telemetry entry as a :class:`PassRecord`; ``sel``
-        indexes the plan's row for this slot."""
-        from repro_torch.sim.device_sim import ACTION_NAMES, ACTION_SKIPPED
+        indexes the plan's row for this slot (``s`` in an ``(N,)`` plan,
+        ``(0, s)`` in a fleet's ``(1, M)`` plan)."""
+        from repro_torch.sim.device_sim import (ACTION_FAILED, ACTION_NAMES,
+                                                ACTION_SKIPPED)
 
+        if code == ACTION_FAILED:
+            return PassRecord(pass_idx, sat_id, "failed",
+                              battery_j=battery_j)
         if code == ACTION_SKIPPED:
             return PassRecord(pass_idx, sat_id, "skipped_energy",
                               d_isl_bits=float(plan.d_isl_bits[sel]),
@@ -494,6 +504,85 @@ class ConstellationSim:
             d_isl_bits=float(plan.d_isl_bits[sel]),
             n_items=float(plan.n_items_kept[sel]),
             battery_j=battery_j)
+
+    def _run_fleet_device(self) -> List[PassRecord]:
+        """Elastic delegation: the run on the fleet engine
+        (:mod:`repro_torch.fleet`) as a one-plane fleet.
+
+        Membership comes from the config's events; the failure stream is
+        drawn from this sim's own generator, one draw a pass, as the host
+        loop would draw it, so a fresh sim matches the seeded schedule bit
+        for bit and chained host and device runs draw from one stream.
+        Only checkpoint persistence (``handoff_dir``) and providers that
+        are not traceable stay host-only.
+        """
+        from repro_torch.fleet import (FleetConfig, FleetEngine,
+                                       ScenarioConfig, build_event_schedule)
+
+        cfg = self.cfg
+        if cfg.handoff_dir is not None:
+            raise ValueError(
+                "the device engines run the handoff as the state they "
+                "carry; persisting handoff checkpoints (handoff_dir) is a "
+                "host-engine feature")
+        self._require_traceable_provider()
+
+        n0, K = len(self.sats), cfg.n_passes
+        rev_len = n0 if K % n0 == 0 else K
+        schedule = build_event_schedule(
+            n0, K, join_events=cfg.join_events,
+            leave_events=cfg.leave_events, fail_prob=0.0, n_planes=1,
+            seed=cfg.seed)
+        schedule = dataclasses.replace(schedule, fail_mask=np.array(
+            [[self.rng.random() < cfg.fail_prob for _ in range(K)]]),
+            fail_prob=float(cfg.fail_prob))
+        fcfg = FleetConfig(
+            n_planes=1, n_revolutions=K // rev_len,
+            passes_per_revolution=rev_len, lr=cfg.lr,
+            optimizer=cfg.optimizer,
+            quantize_boundary=cfg.quantize_boundary,
+            battery_j=cfg.battery_j, recharge_w=cfg.recharge_w,
+            reserve_j=cfg.reserve_j,
+            max_steps_per_pass=cfg.max_steps_per_pass, seed=cfg.seed,
+            fail_prob=cfg.fail_prob, join_events=dict(cfg.join_events),
+            leave_events=dict(cfg.leave_events),
+            join_battery_frac=cfg.join_battery_frac, avg_every=0,
+            scenario=(ScenarioConfig(eclipse=cfg.eclipse)
+                      if cfg.eclipse is not None else None))
+        engine = FleetEngine(
+            self.adapter, self.budget, self.data_for_sat, fcfg,
+            state=self.state, schedule=schedule,
+            dtx_bits=self._ring_dtx_bits(schedule.n_slots),
+            battery0=[s.battery_j for s in self.sats],
+            failed0=[not s.alive for s in self.sats], device=self.device)
+        self.device_engine = engine          # kept for inspection/tests
+        engine._batch_idx = torch.full((1,), self._batch_idx,
+                                       dtype=torch.int32, device=self.device)
+        res = engine.run(stream_telemetry=True)
+        self.state = engine.states[0]
+        self._batch_idx = int(engine._batch_idx[0])
+
+        plan = res.plan                       # (1, M) host rows
+        k0 = len(self.records)
+        for k in range(K):
+            slot = int(res.sat[0, k])
+            self.records.append(self._plan_record(
+                k0 + k, slot, int(res.action[0, k]),
+                float(res.loss[0, k]), float(res.battery_j[0, k]),
+                plan, (0, slot)))
+
+        # the fleet's slot state back onto the host satellites (joiners
+        # appended with their slot id, as the host run appends them)
+        for m in range(len(self.sats), schedule.n_slots):
+            self.sats.append(SatelliteState(
+                m, 0.0, joined_pass=int(schedule.join_pass[m])))
+        for m, sat in enumerate(self.sats):
+            sat.battery_j = float(res.energy.battery_j[0, m])
+            sat.passes_served += int(res.energy.passes_served[0, m])
+            sat.energy_spent_j += float(res.energy.energy_spent_j[0, m])
+            sat.alive = (not bool(res.failed[0, m])
+                         and int(schedule.leave_pass[m]) > K - 1)
+        return self.records
 
     # ------------------------------------------------------------- reporting
     def summary(self) -> Dict[str, Any]:

@@ -251,11 +251,22 @@ class RevolutionSweep:
                        dtype=torch.float64, device=self.e_pass.device),
             float(self.d_isl_bits[cut]), batch_size, max_steps_per_pass)
 
-    def fleet_plan(self, batch_size: int, n_planes: int, **kw):
-        """The reference's (P, N) fleet plan comes with the fleet engine."""
-        raise NotImplementedError(
-            "RevolutionSweep.fleet_plan feeds the fleet engine, which is "
-            "the next slice of the port (ROADMAP queue A, the fleet slice)")
+    def fleet_plan(self, batch_size: int, n_planes: int, *, ring: int = 0,
+                   cut: Optional[int] = None, budget: int = 0,
+                   max_steps_per_pass: Optional[int] = None):
+        """One planned grid cell as a P-plane fleet plan: the ``(N,)``
+        plan of :meth:`revolution_plan` broadcast to the ``(P, N)``
+        layout of :class:`repro_torch.fleet.FleetEngine`, so a swept grid
+        drives a whole constellation without re-solving. Per-satellite
+        fleet plans come from
+        :func:`repro_torch.sim.device_sim.plan_ring_passes` with
+        ``n_sats=(P, M)``."""
+        plan = self.revolution_plan(batch_size, ring=ring, cut=cut,
+                                    budget=budget,
+                                    max_steps_per_pass=max_steps_per_pass)
+        return type(plan)(*[torch.broadcast_to(a, (int(n_planes),)
+                                               + tuple(a.shape))
+                            for a in plan])
 
     def to_host(self) -> Dict[str, np.ndarray]:
         """One explicit device-to-host copy of every result tensor."""

@@ -57,6 +57,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import os
 from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -373,7 +374,10 @@ def _resolve_backend(backend: Optional[str], n_instances: int,
     """The user's backend choice (or "auto") as ``("numpy", None)`` or
     ``("torch", device)``. An explicit ``"torch"`` runs on ``device``,
     the card by default; "auto" runs the torch backend on the device
-    asked for, else on the card where there is one."""
+    asked for, else on the card where there is one. With ``backend``
+    None the choice comes from ``REPRO_SOLVER_BACKEND``, as in the
+    reference, else "auto"."""
+    backend = backend or os.environ.get("REPRO_SOLVER_BACKEND", "auto")
     if backend == "jax":
         raise ValueError(
             "backend='jax' is the reference's; the port's device solver "

@@ -67,7 +67,10 @@ class SplitAdapter:
         p = init_params({**spec_a, **spec_b}, generator)
         return ({k: p[k] for k in spec_a}, {k: p[k] for k in spec_b})
 
-    def costs(self) -> SplitCosts:
+    def costs(self, act_bits: int = 32) -> SplitCosts:
+        """The cut's costs; ``act_bits`` is accepted, as the reference's
+        signature has it, and ignored there too (the engines measure the
+        boundary payload instead)."""
         return self.plan.costs_at(self.cut_index)
 
 
@@ -264,17 +267,24 @@ class SLPassResult:
 
 
 def make_sl_pass(adapter: SplitAdapter, *, quantize_boundary: bool = False,
-                 optimizer=None):
+                 optimizer=None, lr: float = 1e-2, grad_clip: float = 1.0,
+                 donate: bool = True, bucket: bool = True):
     """Returns a pass executor running k SL steps:
     ``sl_pass(state, batches) -> SLPassResult``.
 
     ``optimizer`` is an :class:`~repro_torch.train.optimizer.Optimizer`, a
-    registered name (``"sgd"``/``"adamw"``), or None for SGD with its
-    defaults (lr 1e-2, global-norm clip 1.0). ``batches`` is a list of k per-step batch dicts
-    (shapes may vary between steps). The input state is consumed (its
-    tensors are updated in place); chain ``result.state`` forward.
+    registered name (``"sgd"``/``"adamw"``), or None for SGD built from
+    ``lr`` and ``grad_clip``, as in the reference. ``batches`` is a list
+    of k per-step batch dicts (shapes may vary between steps). The input
+    state is consumed (its tensors are updated in place); chain
+    ``result.state`` forward.
+
+    ``donate`` and ``bucket`` are the reference's jit options (buffer
+    donation, step counts padded to a bucket); eager torch has no
+    counterpart, so they are accepted and ignored: the state is always
+    updated in place and exactly the given steps run.
     """
-    opt = resolve_optimizer(optimizer)
+    opt = resolve_optimizer(optimizer, lr=lr, grad_clip=grad_clip)
     step = make_pass_step(adapter, opt, quantize_boundary=quantize_boundary)
     measure_payload = make_boundary_meter(adapter, quantize_boundary)
 

@@ -1,2 +1,27 @@
-"""Fleet helpers shared by the host scheduler (the fleet engine itself
-is not ported yet)."""
+"""The elastic fleet engine: P planes of elastic rings on one device (the
+port of ``repro/fleet``).
+
+See :mod:`repro_torch.fleet.engine` for the loop,
+:mod:`repro_torch.fleet.events` for the precomputed membership and failure
+schedules that keep elastic runs on the device with the host
+:class:`~repro_torch.core.constellation.ConstellationSim` as the oracle,
+and :mod:`repro_torch.fleet.scenarios` for eclipse windows and the
+inter-plane aggregation modes.
+"""
+from repro_torch.fleet.engine import (FleetConfig, FleetEngine, FleetResult,
+                                      FleetTelemetry, average_planes,
+                                      failure_draws)
+from repro_torch.fleet.events import (EventSchedule, build_event_schedule,
+                                      leave_ids, static_schedule)
+from repro_torch.fleet.scenarios import (ByzantineConfig, EclipseConfig,
+                                         EpidemicConfig, ScenarioConfig,
+                                         ScenarioSchedule, aggregate_planes,
+                                         build_scenario_schedule)
+
+__all__ = [
+    "FleetConfig", "FleetEngine", "FleetResult", "FleetTelemetry",
+    "average_planes", "failure_draws", "EventSchedule",
+    "build_event_schedule", "leave_ids", "static_schedule",
+    "ByzantineConfig", "EclipseConfig", "EpidemicConfig", "ScenarioConfig",
+    "ScenarioSchedule", "aggregate_planes", "build_scenario_schedule",
+]

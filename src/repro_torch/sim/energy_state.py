@@ -4,9 +4,10 @@ device engine (the port of ``repro/sim/energy_state.py``).
 The host :class:`~repro_torch.core.constellation.ConstellationSim` keeps
 one Python ``SatelliteState`` per satellite; the device engine
 (:mod:`repro_torch.sim.device_sim`) keeps the same bookkeeping as one
-:class:`EnergyState` of ``(N,)`` tensors, so battery drain, solar
-recharge and the reserve-skip policy run on the device with no host
-round trip. Indexed by ring slot = satellite id:
+:class:`EnergyState` of ``(N,)`` tensors (``(P, M)`` in the fleet
+engine, a row per plane), so battery drain, solar recharge and the
+reserve-skip policy run on the device with no host round trip. Indexed
+by ring slot = satellite id:
 
 * ``battery_j``       float32 — charge, clamped to ``[0, capacity]``;
 * ``energy_spent_j``  float32 — cumulative eq. (11) energy of served
@@ -57,13 +58,13 @@ def init_energy_state(n_sats: int, battery_j: float,
         passes_skipped=torch.zeros((n_sats,), **i32))
 
 
-def _one(x, dtype, device) -> torch.Tensor:
-    """``x`` (a Python scalar or a 0-d/1-element tensor) as a (1,) tensor
-    of ``dtype``; a Python scalar becomes a fill on ``device``, never a
-    host-to-device copy."""
+def _col(x, dtype, lead, device) -> torch.Tensor:
+    """``x`` (a Python scalar, or a tensor of one value per ring) as a
+    ``lead + (1,)`` tensor of ``dtype``; a Python scalar becomes a fill on
+    ``device``, never a host-to-device copy."""
     if isinstance(x, torch.Tensor):
-        return x.to(dtype).reshape(1)
-    return torch.full((1,), x, dtype=dtype, device=device)
+        return x.to(dtype).reshape(lead + (1,))
+    return torch.full(lead + (1,), x, dtype=dtype, device=device)
 
 
 def recharge(state: EnergyState, energy_j, capacity_j: float,
@@ -71,16 +72,18 @@ def recharge(state: EnergyState, energy_j, capacity_j: float,
              sunlit: Optional[Any] = None) -> EnergyState:
     """Solar recharge between passes, clamped at capacity.
 
-    ``member_mask`` (bool ``(N,)``) limits recharge to the satellites
-    that were ring members during the pass; None recharges the whole
-    (static) ring. ``sunlit`` (bool, a 0-d tensor or a Python bool)
-    gates the plane's solar input: False harvests nothing. None means
-    permanent sunlight.
+    ``member_mask`` (bool, the batteries' shape) limits recharge to the
+    satellites that were ring members during the pass; None recharges
+    the whole (static) ring. ``sunlit`` (a Python bool, or a bool tensor
+    that broadcasts against the batteries: 0-d for one ring, ``(P, 1)``
+    for P planes) gates the plane's solar input: False harvests nothing.
+    None means permanent sunlight.
     """
     gain = energy_j
     if sunlit is not None:
-        gain = torch.where(_one(sunlit, torch.bool,
-                                state.battery_j.device), gain, 0.0)
+        lit = (sunlit.to(torch.bool) if isinstance(sunlit, torch.Tensor)
+               else _col(sunlit, torch.bool, (), state.battery_j.device))
+        gain = torch.where(lit, gain, 0.0)
     if member_mask is not None:
         gain = torch.where(member_mask, gain, 0.0)
     return state._replace(
@@ -93,8 +96,8 @@ def apply_serve(state: EnergyState, sat, drain_j,
     from the battery training drains too, and recorded in
     ``energy_spent_j``; the pass counters are untouched."""
     dev = state.battery_j.device
-    idx = _one(sat, torch.long, dev)
-    d = _one(drain_j, torch.float32, dev)
+    idx = _col(sat, torch.long, (), dev)
+    d = _col(drain_j, torch.float32, (), dev)
     return state._replace(
         battery_j=clamp_battery(state.battery_j.index_add(0, idx, -d),
                                 capacity_j),
@@ -107,24 +110,33 @@ def apply_pass(state: EnergyState, sat, drain_j, e_total_j,
     """Account one pass for satellite ``sat``; every argument but the
     capacity may be a device tensor.
 
+    The state's tensors are ``(N,)`` for one ring, with ``sat`` and the
+    pass values scalars or one-element tensors, or ``(P, M)`` for P
+    planes (the fleet engine), with ``(P,)`` tensors: one pass per plane
+    at its serving slot.
+
     ``trained`` (bool) gates everything: a reserve-policy skip drains
     nothing and bumps ``passes_skipped`` instead. ``drain_j`` is the
     satellite-side battery draw (E_proc^sat + E_comm^down + E_ISL),
     ``e_total_j`` the full eq.-(11) cost recorded in ``energy_spent_j``.
-    ``skipped`` defaults to ``~trained``, the static ring's dichotomy.
+    ``skipped`` defaults to ``~trained``, the static ring's dichotomy;
+    the fleet passes it, so a failed pass bumps neither counter.
     """
     dev = state.battery_j.device
-    idx = _one(sat, torch.long, dev)
-    t = _one(trained, torch.bool, dev)
-    s = ~t if skipped is None else _one(skipped, torch.bool, dev)
+    lead = tuple(state.battery_j.shape[:-1])
+    idx = _col(sat, torch.long, lead, dev)
+    t = _col(trained, torch.bool, lead, dev)
+    s = ~t if skipped is None else _col(skipped, torch.bool, lead, dev)
     f = t.to(torch.float32)
-    drain = _one(drain_j, torch.float32, dev)
-    spent = _one(e_total_j, torch.float32, dev)
+
+    def add(a, v):
+        return a.scatter_add(-1, idx, v)
+
     return EnergyState(
         battery_j=clamp_battery(
-            state.battery_j.index_add(0, idx, -drain * f), capacity_j),
-        energy_spent_j=state.energy_spent_j.index_add(0, idx, spent * f),
-        passes_served=state.passes_served.index_add(
-            0, idx, t.to(torch.int32)),
-        passes_skipped=state.passes_skipped.index_add(
-            0, idx, s.to(torch.int32)))
+            add(state.battery_j, -_col(drain_j, torch.float32, lead, dev) * f),
+            capacity_j),
+        energy_spent_j=add(state.energy_spent_j,
+                           _col(e_total_j, torch.float32, lead, dev) * f),
+        passes_served=add(state.passes_served, t.to(torch.int32)),
+        passes_skipped=add(state.passes_skipped, s.to(torch.int32)))

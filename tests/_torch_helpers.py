@@ -1,5 +1,7 @@
 """Helpers for the tests that hold ``repro_torch`` against ``repro``:
 numpy inputs handed to both packages. Sets no process-wide JAX state."""
+import contextlib
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -60,3 +62,17 @@ class BatchTable:
                                       dtype=self.labels.dtype, device="meta")}
 
     batch_at = __call__
+
+
+@contextlib.contextmanager
+def one_torch_thread():
+    """Run the block with one intra-op torch thread, then restore the
+    count. The engines' loops are thousands of tiny ops; under a test run
+    with several workers on the same cores, idle intra-op threads of every
+    worker compete for them and such a loop runs ~10x slower."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(n)

@@ -13,7 +13,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_helpers import jax_tree_to_numpy
+from _torch_helpers import jax_tree_to_numpy, one_torch_thread
 from repro.core import constellation as jcon
 from repro.core import energy as jenergy
 from repro.core import orbits as jorbits
@@ -162,8 +162,11 @@ def test_four_satellite_ring_matches_reference(tmp_path):
 
 
 def test_device_engine_is_not_ported_and_cpu_must_be_asked(monkeypatch):
-    """The device engine takes static rings; an elastic ring needs the
-    fleet engine, which is not ported yet."""
+    """The single-ring device engine takes static rings; an elastic ring
+    (failures, joins, leaves) goes to the fleet engine as a one-plane
+    fleet, as in the reference; entry points refuse the CPU unless asked.
+    """
+    from repro_torch.fleet import FleetEngine
     from repro_torch.sim.data import DeviceImageryShards
 
     adapter = sl_step.autoencoder_adapter(img=32)
@@ -172,13 +175,17 @@ def test_device_engine_is_not_ported_and_cpu_must_be_asked(monkeypatch):
     for kw in (dict(fail_prob=0.1), dict(join_events={1: 1}),
                dict(leave_events={1: 0})):
         sim = constellation.ConstellationSim(
-            adapter, energy.PassBudget(n_items=4), dshards,
-            constellation.ConstellationConfig(n_passes=25, **kw),
+            adapter, energy.PassBudget(plane=orbits.OrbitalPlane(n_sats=4),
+                                       n_items=4), dshards,
+            constellation.ConstellationConfig(n_passes=3, **kw),
             device="cpu")
-        with pytest.raises(NotImplementedError, match="fleet slice"):
-            sim.run(engine="device")
         with pytest.raises(ValueError, match="static steady-state"):
             sim.as_device_sim()
+        with one_torch_thread():
+            recs = sim.run(engine="device")
+        assert isinstance(sim.device_engine, FleetEngine)
+        assert [r.pass_idx for r in recs] == [0, 1, 2]
+        assert sim.device_engine.n_planes == 1
     sim = constellation.ConstellationSim(
         adapter, energy.PassBudget(n_items=4), shards.batch_at,
         constellation.ConstellationConfig(n_passes=25), device="cpu")
@@ -192,6 +199,32 @@ def test_device_engine_is_not_ported_and_cpu_must_be_asked(monkeypatch):
     with pytest.raises(RuntimeError, match="cuda"):
         DeviceConstellationSim(adapter, energy.PassBudget(),
                                DeviceImageryShards(img=32, batch=2))
+
+
+def test_config_takes_the_references_fields():
+    """``ConstellationConfig(batch_size=..., items_per_pass=...)``, as the
+    reference declares them (and its fleet smoke passes batch_size=4):
+    accepted, and read by nothing, so the run is the same without them."""
+    adapter = sl_step.autoencoder_adapter(img=32)
+    shards = ImageryShards(img=32, batch=2)
+    want = jcon.ConstellationConfig(n_passes=2, batch_size=4,
+                                    items_per_pass=100.0)
+    runs = []
+    for kw in (dict(batch_size=4, items_per_pass=100.0), {}):
+        cfg = constellation.ConstellationConfig(n_passes=2, **kw)
+        if kw:
+            assert (cfg.batch_size, cfg.items_per_pass) == \
+                (want.batch_size, want.items_per_pass)
+        sim = constellation.ConstellationSim(
+            adapter, energy.PassBudget(plane=orbits.OrbitalPlane(n_sats=2),
+                                       n_items=4), shards.batch_at, cfg,
+            device="cpu")
+        with one_torch_thread():
+            runs.append(sim.run())
+    assert [(r.action, r.loss, r.battery_j) for r in runs[0]] == \
+        [(r.action, r.loss, r.battery_j) for r in runs[1]]
+    defaults = constellation.ConstellationConfig()
+    assert (defaults.batch_size, defaults.items_per_pass) == (8, 400.0)
 
 
 def test_host_engine_plans_with_numpy_at_any_ring_size(monkeypatch):

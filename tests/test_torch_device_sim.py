@@ -15,7 +15,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_helpers import BatchTable, jax_tree_to_numpy
+from _torch_helpers import BatchTable, jax_tree_to_numpy, one_torch_thread
 from repro.core import constellation as jcon
 from repro.core import energy as jenergy
 from repro.core import orbits as jorbits
@@ -41,6 +41,12 @@ SHARDS = DeviceImageryShards(img=32, batch=4, device=CPU)
 ADAPTER = autoencoder_adapter(cut=5, img=32)
 ENERGY_SKIPS = dict(n_passes=12, battery_j=200.0, recharge_w=0.01,
                     reserve_j=150.0, max_steps_per_pass=4)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    with one_torch_thread():
+        yield
 
 
 def _budget(n_sats=4, n_items=16.0):
@@ -189,9 +195,12 @@ def test_sweep_cell_feeds_whole_revolution():
 
 
 def test_delegation_guards():
-    """Static-ring preconditions raise ValueError as in the reference;
-    an elastic ring, which the reference hands to its fleet engine, raises
-    NotImplementedError naming the fleet slice."""
+    """Static-ring preconditions raise ValueError as in the reference; an
+    elastic ring goes to the fleet engine, whose preconditions (a
+    traceable provider, no handoff_dir) raise ValueError as the
+    reference's do."""
+    from repro_torch.fleet import FleetEngine
+
     budget = _budget()
 
     def sim(data, **kw):
@@ -200,10 +209,13 @@ def test_delegation_guards():
 
     with pytest.raises(ValueError, match="traceable"):
         sim(lambda s, i: SHARDS(s, i), n_passes=8).run(engine="device")
-    with pytest.raises(NotImplementedError, match="fleet slice"):
-        sim(SHARDS, n_passes=8, fail_prob=0.5).run(engine="device")
-    with pytest.raises(NotImplementedError, match="fleet slice"):
-        sim(SHARDS, n_passes=8, join_events={2: 1}).run(engine="device")
+    with pytest.raises(ValueError, match="traceable"):
+        sim(lambda s, i: SHARDS(s, i), n_passes=2,
+            fail_prob=0.5).run(engine="device")
+    for kw in (dict(fail_prob=0.5), dict(join_events={1: 1})):
+        s = sim(SHARDS, n_passes=2, max_steps_per_pass=1, **kw)
+        assert len(s.run(engine="device")) == 2
+        assert isinstance(s.device_engine, FleetEngine)
     with pytest.raises(ValueError, match="handoff"):
         sim(SHARDS, n_passes=8, fail_prob=0.5,
             handoff_dir="/nonexistent").run(engine="device")
@@ -315,8 +327,13 @@ def test_launch_device_sim_small_on_cpu():
     revs = out["revolutions"]
     assert revs[0]["trained"] == revs[1]["trained"] == 64
     assert revs[2]["skipped"] == 64           # batteries below reserve
-    with pytest.raises(NotImplementedError, match="fleet slice"):
-        launch_device_sim.main(["--planes", "2", "--device", "cpu"])
+    # --planes 2: the same scenario on the fleet engine, averaged every
+    # revolution (cut to 4 satellites x 3 revolutions here)
+    fleet = launch_device_sim.run(4, 3, planes=2, device=CPU)
+    assert fleet["traces"] == 1 and fleet["host_syncs"] == 3
+    revs = fleet["revolutions"]
+    assert revs[0]["trained"] == revs[1]["trained"] == 8
+    assert revs[2]["skipped"] == 8
 
 
 def test_device_engine_matches_reference_host_engine():

@@ -11,6 +11,8 @@ from pathlib import Path
 import pytest
 import torch
 
+from _torch_helpers import one_torch_thread
+
 ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / "src" / "repro_torch"
 
@@ -34,7 +36,10 @@ def test_modules_and_chip_smoke_import_without_jax():
             "repro_torch.obs.ring", "repro_torch.obs.metrics",
             "repro_torch.core.resource_opt_torch",
             "repro_torch.serve_fleet.engine", "repro_torch.utils.bucketing",
-            "repro_torch.launch.device_sim"} <= set(mods)
+            "repro_torch.launch.device_sim", "repro_torch.fleet",
+            "repro_torch.fleet.engine", "repro_torch.fleet.events",
+            "repro_torch.fleet.scenarios",
+            "repro_torch.fleet.__main__"} <= set(mods)
     code = ("import sys\n"
             "sys.modules['jax'] = None\n"
             "sys.modules['repro'] = None\n"
@@ -64,6 +69,13 @@ def test_source_imports_neither_jax_nor_repro(path):
 
 
 def test_entry_points_refuse_cpu_unless_asked(monkeypatch):
+    # the entry points below are loops of tiny ops: with one intra-op
+    # thread they do not contend with the other test workers' threads
+    with one_torch_thread():
+        _entry_points_refuse_cpu_unless_asked(monkeypatch)
+
+
+def _entry_points_refuse_cpu_unless_asked(monkeypatch):
     from repro_torch import configs
     from repro_torch.launch import constellation, device_sim, serve
     from repro_torch.models import lm

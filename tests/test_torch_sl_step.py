@@ -3,13 +3,15 @@ the JAX reference, on the reference's weights and the same NumPy
 batches, at a small size (32 px, batch 2). Tolerances: loss, grads and
 params after a pass within 5e-4 (the reference's gradient tolerance);
 optimizer updates within 1e-6; boundary payloads exact."""
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from _torch_helpers import jax_tree_to_numpy
+from _torch_helpers import jax_tree_to_numpy, one_torch_thread
 from repro.core import sl_step as jsl
 from repro.core.train_state import SLTrainState as JState
 from repro.train import optimizer as jopt
@@ -180,3 +182,30 @@ def test_lr_schedule_and_clip_match_reference():
     want, jgn = jopt.clip_by_global_norm(_jax(g), 1.0)
     np.testing.assert_allclose(float(gn), float(jgn), rtol=1e-6)
     _close(got, want, 1e-6)
+
+
+def test_sl_pass_takes_the_references_legacy_kwargs():
+    """``make_sl_pass(ad, lr=, grad_clip=, donate=, bucket=)`` as the
+    reference takes it (tests/test_batched_engine.py calls
+    ``make_sl_pass(ad, lr=1e-2)``): lr and grad_clip build the SGD, donate
+    and bucket change nothing. Equal, bit for bit, to a pass built with
+    the same SGD as ``optimizer=``; and ``SplitAdapter.costs(act_bits=32)``
+    is the reference's call."""
+    ja, ta = _adapters("autoencoder")
+    batches = [SHARDS.batch_at(1, i) for i in range(2)]
+    opt = optimizer.sgd(lr=1e-2, grad_clip=0.5)
+    runs = []
+    for make in (lambda: sl_step.make_sl_pass(ta, lr=1e-2, grad_clip=0.5,
+                                              donate=False, bucket=False),
+                 lambda: sl_step.make_sl_pass(ta, optimizer=opt)):
+        state = SLTrainState.create(*ta.init(torch.Generator().manual_seed(0)),
+                                    opt)
+        with one_torch_thread():
+            runs.append(make()(state, batches))
+    assert torch.equal(runs[0].losses, runs[1].losses)
+    for a, b in zip(jax.tree.leaves(to_jax_params(runs[0].params_a)),
+                    jax.tree.leaves(to_jax_params(runs[1].params_a))):
+        np.testing.assert_array_equal(a, b)
+    assert ta.costs(act_bits=32) == ta.costs()
+    assert dataclasses.astuple(ta.costs(act_bits=8)) == \
+        dataclasses.astuple(ja.costs(act_bits=8))

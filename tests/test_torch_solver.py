@@ -214,8 +214,11 @@ def test_sweep_revolutions_matches_per_cell_host_solves():
     np.testing.assert_array_equal(host["best_cut"], np.argmin(e, axis=1))
     steps = sweep.steps_for(4)
     assert steps.dtype == torch.int32 and steps.shape == (3, 3, 2)
-    with pytest.raises(NotImplementedError, match="fleet slice"):
-        sweep.fleet_plan(4, 2)
+    cell = sweep.revolution_plan(4, ring=1, cut=0, budget=1)
+    fleet = sweep.fleet_plan(4, 2, ring=1, cut=0, budget=1)
+    for a, b in zip(fleet, cell):
+        assert a.shape == (2,) + tuple(b.shape)
+        assert torch.equal(a[0], b) and torch.equal(a[1], b)
 
 
 def test_sweep_sentinel_and_measured_dtx_override():
@@ -250,3 +253,21 @@ def test_ring_pass_coeffs_match_the_host_gather():
     for k, v in want.items():
         np.testing.assert_allclose(getattr(got, k).numpy(), v, rtol=1e-12,
                                    err_msg=k)
+
+
+def test_backend_from_the_environment(monkeypatch):
+    """With ``backend=None`` the choice comes from REPRO_SOLVER_BACKEND, as
+    in the reference (resource_opt.py:453); "jax" from the environment
+    raises as "jax" from the argument does, naming "torch"."""
+    b, c = energy.PassBudget(), splitting.resnet18_plan().costs_at(5)
+    monkeypatch.setenv("REPRO_SOLVER_BACKEND", "torch")
+    assert resource_opt._resolve_backend(None, 1, "cpu") == ("torch", "cpu")
+    monkeypatch.setenv("REPRO_SOLVER_BACKEND", "numpy")
+    assert resource_opt._resolve_backend(None, 4096) == ("numpy", None)
+    assert resource_opt._resolve_backend("torch", 1, "cpu") == ("torch",
+                                                                 "cpu")
+    monkeypatch.setenv("REPRO_SOLVER_BACKEND", "jax")
+    with pytest.raises(ValueError, match="'torch'"):
+        resource_opt.solve_batch(b, c)
+    monkeypatch.delenv("REPRO_SOLVER_BACKEND")
+    assert resource_opt._resolve_backend(None, 1) == ("numpy", None)
