@@ -67,7 +67,20 @@ Phases, each fatal on failure:
      quantizer launches per executed step, with passes/s, steps/s, the
      host engines' time and the idle share; (b) the baseline smoke of
      ``python -m repro_torch.fleet`` (2 planes x 8 satellites, 2
-     revolutions) on the card.
+     revolutions) on the card;
+ 10. the ISL exchange and the degraded-ops fleet (repro_torch.isl,
+     repro_torch.fleet.scenarios): (a) phase 9a's two planes under
+     eclipses, an epidemic (every plane's pass 0 a fault), a
+     sign-flipping Byzantine slot and the async int8 ISL gossip every 4
+     passes instead of the free average: actions and every EV_EXCHANGE
+     row equal to the NumPy oracles bit for bit, finite losses on the
+     honest plane, one sync for the revolution, B1 launches = 2 x
+     executed steps + contacts x planes x parameter leaves with no copy,
+     one push's codec kernel against its plain version leaf by leaf and
+     against the same push on the host, and the codec's largest leaf
+     timed against its bound; (b) ``python -m repro_torch.isl`` and
+     ``python -m repro_torch.fleet --scenario degraded`` at their
+     reference sizes on the card.
 Each phase prints its elapsed time. Every profile is framed by marker
 kernels (cuda_events), since torch.profiler can drop a trace's first
 kernels.
@@ -102,8 +115,16 @@ from repro_torch.core.orbits import OrbitalPlane  # noqa: E402
 from repro_torch.core.splitting import RESNET18_PAPER_CUTS  # noqa: E402
 from repro_torch.core.train_state import SLTrainState, _leaves  # noqa: E402
 from repro_torch.data.synthetic import ImageryShards  # noqa: E402
-from repro_torch.fleet import FleetConfig, FleetEngine  # noqa: E402
+from repro_torch.fleet import (ByzantineConfig, EclipseConfig,  # noqa: E402
+                               EpidemicConfig, FleetConfig, FleetEngine,
+                               ScenarioConfig, oracle_actions)
 from repro_torch.fleet.engine import _smoke as fleet_smoke  # noqa: E402
+from repro_torch.fleet.scenarios import (  # noqa: E402
+    _smoke_degraded as degraded_smoke)
+from repro_torch.isl import (CodecConfig, ContactConfig,  # noqa: E402
+                             ExchangeConfig, encode_delta, exchange_events,
+                             oracle_exchange)
+from repro_torch.isl.__main__ import _smoke as isl_smoke  # noqa: E402
 from repro_torch.kernels import (_build, decode_attn, flash_attn,  # noqa: E402
                                  mamba_scan, mlstm_scan, ops, split_quant)
 from repro_torch.models import lm  # noqa: E402
@@ -116,10 +137,11 @@ from repro_torch.models.layers import Ctx  # noqa: E402
 from repro_torch.serve.engine import DecodeEngine, Request  # noqa: E402
 from repro_torch.serve_fleet.engine import (SplitDecodeEngine,  # noqa: E402
                                             serve_cost)
-from repro_torch.sim import (ACTION_NAMES, ACTION_SKIPPED,  # noqa: E402
-                             ACTION_TRAINED, DeviceConstellationSim,
-                             DeviceImageryShards, DeviceSimConfig,
-                             plan_ring_passes)
+from repro_torch.sim import (ACTION_NAMES, ACTION_SHED,  # noqa: E402
+                             ACTION_SKIPPED, ACTION_TRAINED,
+                             DeviceConstellationSim, DeviceImageryShards,
+                             DeviceSimConfig, plan_ring_passes)
+from repro_torch.sim.device_sim import ACTION_FAULT  # noqa: E402
 
 # Published H100 SXM peaks (NVIDIA data sheet; dense, at 700 W).
 HBM_BYTES_PER_S = 3.35e12
@@ -1492,6 +1514,170 @@ def fleet_smoke_9b(label):
           f"[{label}]")
 
 
+# Phase 10a: phase 9a's two full-width planes (the join, the leave, the
+# seeded failures, satellites 3 and 17 below reserve, 6 SL steps of 8 a
+# pass) under the degraded smoke's stressors: eclipses (period 4, duty
+# 0.5, stagger 1), an epidemic from slot 0 at pass 0 (beta 0.6, ttl 2;
+# pass 0 of each plane is a fault) and slot 1 of plane 0 sign-flipping its
+# updates; no free average, the async int8 ISL gossip instead, every 4
+# passes to the next plane (mix 0.5, staleness lambda 0.1). Held against
+# the NumPy action and exchange oracles bit for bit.
+P10_SCENARIO = ScenarioConfig(
+    eclipse=EclipseConfig(period=4, duty=0.5, stagger=1),
+    byzantine=ByzantineConfig(slots={0: [1]}, mode="sign_flip", scale=1.0),
+    epidemic=EpidemicConfig(beta=0.6, ttl=2, init_slots=(0,), start=0))
+P10_EXCHANGE = ExchangeConfig(mode="async", codec=CodecConfig("int8"),
+                              contact=ContactConfig(period=4, offsets=(1,)),
+                              mix=0.5, staleness_lam=0.1)
+
+
+def degraded_fleet_full_width(label, flush):
+    """Phase 10a: the fleet at full width under eclipses, an epidemic, a
+    Byzantine slot and the async int8 ISL gossip, against the oracles;
+    then one push's codec, leaf by leaf, kernel against plain version,
+    and the codec's largest leaf timed. Returns the B1 launches of the
+    run."""
+    t_phase = time.perf_counter()
+    adapter = sl_step.resnet18_adapter(cut=RESNET18_PAPER_CUTS["l2"],
+                                       img=224)
+    shards = DeviceImageryShards(img=224, batch=RING_BATCH, device="cuda")
+    budget = PassBudget()                      # Table I: 25 sats, 400 items
+    n0 = budget.plane.n_sats
+    battery0 = [LOOP_LOW_J if i in LOOP_LOW_SATS else 5_000.0
+                for i in range(n0)]
+    init = adapter.init(torch.Generator(device="cuda").manual_seed(
+        FLEET_SEED))
+    state = SLTrainState.create(*[map_tree(torch.clone, t) for t in init],
+                                resolve_optimizer("sgd"))
+    fleet = FleetEngine(adapter, budget, shards, FleetConfig(
+        n_planes=FLEET_PLANES, n_revolutions=1, seed=FLEET_SEED,
+        avg_every=0, optimizer="sgd", quantize_boundary=True,
+        max_steps_per_pass=LOOP_STEPS, recharge_w=LOOP_RECHARGE_W,
+        fail_prob=FLEET_FAIL, scenario=P10_SCENARIO, exchange=P10_EXCHANGE,
+        **FLEET_EVENTS), state=state, battery0=battery0, device="cuda")
+    check(fleet._ex_on, f"the exchange is off: {fleet._ex_bits} bits over "
+          f"a {fleet._ex_cap_bits} bit contact")
+    expect_act = oracle_actions(fleet)
+    expect_ex = oracle_exchange(fleet)
+    K, P = fleet.scan_steps, FLEET_PLANES
+    n_leaves = len(_leaves((state.params_a, state.params_b)))
+    contacts = P10_EXCHANGE.contact.contacts_in(n0)
+    split_quant.quantize_dequantize.launches = 0
+    split_quant.quantize_rows.launches = 0
+    split_quant.copies = 0
+    t0 = time.perf_counter()
+    res = fleet.run(stream_telemetry=True)        # ends in its one read
+    wall = time.perf_counter() - t0
+    launches = split_quant.quantize_dequantize.launches
+    other = (split_quant.quantize_rows.launches, split_quant.copies)
+
+    executed = P * n0 * K
+    check(launches == 2 * executed + contacts * P * n_leaves > 0
+          and other == (0, 0),
+          f"quantizer launches {launches} != 2 x {executed} executed steps "
+          f"+ {contacts} contacts x {P} planes x {n_leaves} leaves, or "
+          f"quantize_rows launches and copies {other}")
+    check(fleet.traces == 1 and fleet.device_calls == fleet.host_syncs == 1,
+          f"one build, dispatch and sync: {fleet.traces}, "
+          f"{fleet.device_calls}, {fleet.host_syncs}")
+    check(np.array_equal(res.action, expect_act),
+          f"actions {res.action.tolist()} != oracle {expect_act.tolist()}")
+    got_ex = exchange_events(fleet.recorder)
+    check(got_ex["t"].size == expect_ex["t"].size == contacts,
+          f"{got_ex['t'].size} exchanges, oracle {expect_ex['t'].size}, "
+          f"schedule {contacts}")
+    for col in ("t", "aggregate", "slot", "bits", "e_isl_j", "staleness",
+                "weight"):
+        check(np.array_equal(got_ex[col], expect_ex[col]),
+              f"exchange column {col}: {got_ex[col]} != {expect_ex[col]}")
+    faults = int((res.action == ACTION_FAULT).sum())
+    check(faults > 0 and (res.action[:, 0] == ACTION_FAULT).all(),
+          f"pass 0 of every plane is an epidemic fault: {res.action[:, 0]}")
+    trained1 = (res.action[1] == ACTION_TRAINED) | \
+        (res.action[1] == ACTION_SHED)
+    check(trained1.any() and np.isfinite(res.loss[1][trained1]).all(),
+          "plane 1's trained passes have finite losses")
+    check(res.isl_bits.sum() > 0 and res.isl_e_j.sum() > 0
+          and (res.isl_contacts == contacts).all(),
+          f"ISL meters: bits {res.isl_bits}, J {res.isl_e_j}, contacts "
+          f"{res.isl_contacts}")
+    s = res.summary()
+
+    # one push of plane 0's codec after the run, leaf by leaf: the kernel's
+    # reconstruction against the plain version's on the same accumulated
+    # delta (params - anchor + residual), and the whole push on the card
+    # against the same push on the host
+    ex = fleet._ex_state
+    params = (res.state[0].params_a, res.state[0].params_b)
+    accs = [(p.float() - a + r) for p, a, r in zip(
+        _leaves(params), _leaves(ex.anchor[0]), _leaves(ex.residual[0]))]
+    for acc in accs:
+        x2 = acc.reshape(1, -1) if acc.dim() < 2 else \
+            acc.reshape(-1, acc.shape[-1])
+        check(torch.equal(split_quant.quantize_dequantize(x2),
+                          split_quant.quantize_dequantize_plain(x2)),
+              f"codec leaf {tuple(acc.shape)}: kernel != plain")
+    kept, resid = encode_delta(params, ex.anchor[0], ex.residual[0],
+                               P10_EXCHANGE.codec)
+    to_cpu = lambda t: map_tree(lambda x: x.cpu(), t)          # noqa: E731
+    kept_h, resid_h = encode_delta(to_cpu(params), to_cpu(ex.anchor[0]),
+                                   to_cpu(ex.residual[0]), P10_EXCHANGE.codec)
+    check(all(torch.equal(a.cpu(), b) for a, b in zip(
+        _leaves((kept, resid)), _leaves((kept_h, resid_h)))),
+        "a push's codec on the card != the same push on the host")
+    big = max(accs, key=lambda t: t.numel())
+    row = check_quant(f"codec leaf {tuple(big.shape)} f32 as "
+                      f"{tuple(big.reshape(-1, big.shape[-1]).shape)} rows",
+                      big.reshape(-1, big.shape[-1]), True, flush)
+
+    valid = int(res.n_steps.sum())
+    print(f"fleet resnet18 224px cut l2 batch {RING_BATCH}, {P} planes x the "
+          f"25-sat Table-I ring as phase 9a, one revolution, eclipses "
+          f"(period 4, duty 0.5, stagger 1), epidemic (beta 0.6, ttl 2, "
+          f"slot 0 at pass 0), slot 1 of plane 0 sign-flipping, async int8 "
+          f"gossip every 4 passes (mix 0.5, lambda 0.1), no free average "
+          f"[{label}]")
+    for p in range(P):
+        print(f"  plane {p}: actions "
+              f"{[ACTION_NAMES[int(a)][:4] for a in res.action[p]]}; "
+              f"infected {res.n_infected[p].tolist()}")
+    print(f"  fleet == oracles: actions and {contacts} EV_EXCHANGE rows bit "
+          f"for bit; {faults} faulted passes; {fleet.host_syncs} sync for "
+          f"the revolution (sync-debug 'error' around it); ISL "
+          f"{res.isl_bits.tolist()} bits, {res.isl_e_j.tolist()} J, "
+          f"{res.isl_contacts.tolist()} pushes; summary {s}")
+    print(f"  quantizer launches {launches} = 2 x {executed} executed SL "
+          f"steps + {contacts} contacts x {P} planes x {n_leaves} leaves; "
+          f"quantize_rows launches and copies {other}; one push's codec "
+          f"kernel == plain on all {n_leaves} leaves, card == host")
+    print(f"  fleet: {P * n0} passes in {wall:.3f} s = "
+          f"{P * n0 / wall:.2f} passes/s, {valid / wall:.2f} valid SL "
+          f"steps/s ({valid} valid of {executed} executed) incl. the "
+          f"telemetry read and {contacts} pushes [{label}]")
+    print(f"  codec leaf {row['shape']}: kernel {row['ms']:.4f} plain "
+          f"{row['plain_ms']:.4f} bound {row['bound_ms']:.4f} "
+          f"({row['bound_by']}) ms; device time "
+          f"{sum(ms for *_, ms in row['device']):.4f} ms, copy_ "
+          f"{row['copy_ms']:.4f} ms; phase 10a "
+          f"{time.perf_counter() - t_phase:.1f} s [{label}]")
+    return launches
+
+
+def isl_smokes_10b(label):
+    """Phase 10b: ``python -m repro_torch.isl`` and ``python -m
+    repro_torch.fleet --scenario degraded`` at their reference sizes, on
+    the card."""
+    t0 = time.perf_counter()
+    out = isl_smoke(device="cuda")
+    check(out["contacts"] > 0, f"isl smoke: {out}")
+    t1 = time.perf_counter()
+    s = degraded_smoke(device="cuda")
+    check(s["faulted"] > 0 and s["skipped"] > 0, f"degraded smoke: {s}")
+    print(f"  isl smoke (2 x 4 sats, 2 revolutions) {t1 - t0:.3f} s, "
+          f"degraded smoke (2 x 8 sats, 2 revolutions) "
+          f"{time.perf_counter() - t1:.3f} s [{label}]")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1629,6 +1815,14 @@ def main() -> int:
     phase_done("phase 9a")
     fleet_smoke_9b(smi)
     phase_done("phase 9b")
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    p10_launches = degraded_fleet_full_width(smi, flush)
+    del flush
+    paths["fleet_degraded_resnet18"] = {"split_quant": p10_launches}
+    torch.cuda.empty_cache()
+    phase_done("phase 10a")
+    isl_smokes_10b(smi)
+    phase_done("phase 10b")
     print(f"launches on the main paths (B1: counted by its wrapper at each "
           f"launch; the device loop is eager, no graph): {paths}")
     launches = {n: sum(p.get(n, 0) for p in paths.values()) for n in WRAPPERS}

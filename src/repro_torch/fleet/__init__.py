@@ -5,8 +5,9 @@ See :mod:`repro_torch.fleet.engine` for the loop,
 :mod:`repro_torch.fleet.events` for the precomputed membership and failure
 schedules that keep elastic runs on the device with the host
 :class:`~repro_torch.core.constellation.ConstellationSim` as the oracle,
-and :mod:`repro_torch.fleet.scenarios` for eclipse windows and the
-inter-plane aggregation modes.
+and :mod:`repro_torch.fleet.scenarios` for the degraded-ops stressors
+(eclipse windows, Byzantine slots, epidemic faults), the inter-plane
+aggregation modes and the NumPy action oracle.
 """
 from repro_torch.fleet.engine import (FleetConfig, FleetEngine, FleetResult,
                                       FleetTelemetry, average_planes,
@@ -16,7 +17,9 @@ from repro_torch.fleet.events import (EventSchedule, build_event_schedule,
 from repro_torch.fleet.scenarios import (ByzantineConfig, EclipseConfig,
                                          EpidemicConfig, ScenarioConfig,
                                          ScenarioSchedule, aggregate_planes,
-                                         build_scenario_schedule)
+                                         build_scenario_schedule,
+                                         epidemic_oracle, epidemic_step,
+                                         oracle_actions)
 
 __all__ = [
     "FleetConfig", "FleetEngine", "FleetResult", "FleetTelemetry",
@@ -24,4 +27,5 @@ __all__ = [
     "build_event_schedule", "leave_ids", "static_schedule",
     "ByzantineConfig", "EclipseConfig", "EpidemicConfig", "ScenarioConfig",
     "ScenarioSchedule", "aggregate_planes", "build_scenario_schedule",
+    "epidemic_oracle", "epidemic_step", "oracle_actions",
 ]

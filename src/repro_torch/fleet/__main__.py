@@ -1,10 +1,11 @@
-"""``python -m repro_torch.fleet [--scenario baseline] [--device cuda|cpu]``:
-the baseline fleet smoke (:func:`repro_torch.fleet.engine._smoke`), two
-planes of 8 satellites with a join, a leave and seeded failures over two
-revolutions, held against the host engine plane by plane. It runs on the
-card unless ``--device cpu`` is given. ``--scenario degraded`` (eclipse
-windows, a Byzantine slot and epidemic faults) is slice 10 of the port
-and raises ``NotImplementedError``.
+"""``python -m repro_torch.fleet [--scenario baseline|degraded] [--device
+cuda|cpu]``: the fleet smokes. ``baseline`` (:func:`repro_torch.fleet.
+engine._smoke`) runs two planes of 8 satellites with a join, a leave and
+seeded failures over two revolutions, held against the host engine plane
+by plane; ``degraded`` (:func:`repro_torch.fleet.scenarios.
+_smoke_degraded`) runs them under eclipse windows, a Byzantine slot and
+epidemic faults, held against the NumPy action oracle. They run on the
+card unless ``--device cpu`` is given.
 
 Environment knobs, as the reference's: ``REPRO_FLEET_SMOKE_SATS`` (default
 8), ``REPRO_FLEET_SMOKE_PLANES`` (2), ``REPRO_FLEET_SMOKE_REVS`` (2).
@@ -12,7 +13,8 @@ Environment knobs, as the reference's: ``REPRO_FLEET_SMOKE_SATS`` (default
 import argparse
 import os
 
-from repro_torch.fleet.engine import NEXT_SLICE, _smoke
+from repro_torch.fleet.engine import _smoke
+from repro_torch.fleet.scenarios import _smoke_degraded
 
 
 def main(argv=None):
@@ -23,10 +25,8 @@ def main(argv=None):
                     help="cuda (hand-written kernels) or cpu (their plain "
                     "PyTorch versions)")
     args = ap.parse_args(argv)
-    if args.scenario == "degraded":
-        raise NotImplementedError(
-            f"the degraded-ops smoke (--scenario degraded) is {NEXT_SLICE}")
-    return _smoke(
+    smoke = _smoke_degraded if args.scenario == "degraded" else _smoke
+    return smoke(
         n_sats=int(os.environ.get("REPRO_FLEET_SMOKE_SATS", "8")),
         n_planes=int(os.environ.get("REPRO_FLEET_SMOKE_PLANES", "2")),
         n_revolutions=int(os.environ.get("REPRO_FLEET_SMOKE_REVS", "2")),

@@ -1,6 +1,5 @@
 """The elastic fleet engine: P orbital planes, each an elastic M-slot ring,
-on one device (the port of ``repro/fleet/engine.py``, without its ISL
-exchange, its degraded-ops stressors and its mesh).
+on one device (the port of ``repro/fleet/engine.py``, without its mesh).
 
 The single-ring engine (:mod:`repro_torch.sim.device_sim`) runs one
 static ring. This one adds, still with no host read inside a revolution:
@@ -25,11 +24,22 @@ static ring. This one adds, still with no host read inside a revolution:
   int8 boundary's straight-through estimator is an
   ``autograd.Function`` without a batching rule, and stacking the
   planes' conv weights would change the kernels each step runs.
-* **Inter-plane averaging.** Every ``avg_every`` revolutions (P > 1),
-  every plane's parameters and optimizer state become their
-  :func:`~repro_torch.fleet.scenarios.aggregate_planes` center (the
-  mean by default): the paper's inter-plane checkpoint exchange over the
-  ISL, free and instantaneous, as the reference's ``exchange=None``.
+* **Degraded operations** (:mod:`repro_torch.fleet.scenarios`): eclipse
+  windows gate the recharge; epidemic faults spread along each ring
+  (``ACTION_FAULT`` passes train nothing and pay nothing), drawn from the
+  precomputed schedule inside the horizon and from a counter hash beyond
+  it; a Byzantine slot's pass corrupts the parameter update it made.
+* **The inter-plane exchange.** With ``exchange=None``, every
+  ``avg_every`` revolutions (P > 1) every plane's parameters and
+  optimizer state become their
+  :func:`~repro_torch.fleet.scenarios.aggregate_planes` center (the mean
+  by default), free and instantaneous. With an
+  :class:`~repro_torch.isl.exchange.ExchangeConfig` the exchange is
+  modeled (:mod:`repro_torch.isl`): async gossip at contact windows after
+  the passes, or the sync codec exchange at the boundary, with the
+  compressed deltas' exact bits metered, each push's energy charged to
+  the serving satellite and the amortized bits priced into the plan.
+  The int8 codec runs kernel B1, one launch per leaf per plane per push.
 * **Planning.** All P×M problem-(13) instances are shed and solved in
   one call (:func:`~repro_torch.sim.device_sim.plan_ring_passes` with
   ``n_sats=(P, M)``), with per-satellite measured ``dtx_bits`` rows.
@@ -40,10 +50,12 @@ ids offset by ``p * M``, gives the plane's actions, slots, losses and
 batteries (:func:`_smoke`). ``ConstellationSim.run(engine="device")``
 hands elastic rings here as a one-plane fleet.
 
-There is no mesh (one device; the reference shards the plane axis over
-``launch/mesh.py``, not ported), no modeled ISL exchange
-(``FleetConfig.exchange``) and no Byzantine or epidemic stressors: those
-raise ``NotImplementedError`` (slice 10 of the port).
+There is no mesh: every plane runs on one device (the reference shards
+the plane axis over ``launch/mesh.py``, not ported). The reference draws
+the epidemic's spread and the ``scaled_noise`` corruption beyond its
+precomputed draws from ``jax.random``; the port draws them from the
+counter hash of :mod:`repro_torch.sim.data` (as the failures), so they
+are held to no bits of the reference's.
 """
 from __future__ import annotations
 
@@ -62,14 +74,21 @@ from repro_torch.core.sl_step import (SplitAdapter, dedupe_state_buffers,
 from repro_torch.core.train_state import SLTrainState, _leaves, _rebuild
 from repro_torch.fleet.events import EventSchedule, build_event_schedule
 from repro_torch.fleet.scenarios import (AGGREGATION_MODES, ScenarioConfig,
-                                         aggregate_planes, plane_center)
+                                         aggregate_planes,
+                                         build_scenario_schedule,
+                                         epidemic_step)
+from repro_torch.isl.codec import delta_payload_bits
+from repro_torch.isl.exchange import (ExchangeConfig, aggregate_into,
+                                      async_gossip_step, exchange_init,
+                                      null_exchange_state,
+                                      sync_exchange_step)
 from repro_torch.obs.metrics import (MetricsRegistry, counter_property,
                                      global_registry)
 from repro_torch.obs.ring import (EV_EXCHANGE, EV_PASS, FlightRecorder,
                                   TelemetryRing, record as ring_record,
                                   ring_init)
 from repro_torch.sim import energy_state as es_mod
-from repro_torch.sim.data import _M32, _hash32, uniforms
+from repro_torch.sim.data import _M32, _hash32, box_muller, uniforms
 from repro_torch.sim.device_sim import (ACTION_FAILED, ACTION_FAULT,
                                         ACTION_SHED, ACTION_SKIPPED,
                                         ACTION_TRAINED, DevicePassPlan,
@@ -78,11 +97,11 @@ from repro_torch.sim.device_sim import (ACTION_FAILED, ACTION_FAULT,
 from repro_torch.sim.energy_state import EnergyState
 from repro_torch.train.optimizer import resolve_optimizer
 
-NEXT_SLICE = ("slice 10 of the port (ROADMAP queue A, the ISL exchange and "
-              "the degraded-ops stressors)")
-
-#: entropy tag of the failure draws beyond the precomputed horizon
+#: entropy tags of the counter-hash draws: failures and epidemic spread
+#: beyond the precomputed horizon, and the scaled_noise corruption
 _FAIL_TAG = 0xFA11
+_SPREAD_TAG = 0x5B8E
+_NOISE_TAG = 0x4015E
 
 
 @dataclasses.dataclass(frozen=True)
@@ -124,14 +143,15 @@ class FleetConfig:
     passes_per_revolution: Optional[int] = None
     # inter-plane averaging period, in revolutions; 0 = off
     avg_every: int = 1
-    # eclipse windows (fleet/scenarios.py); None = permanent sunlight.
-    # Byzantine and epidemic stressors raise (slice 10)
+    # eclipse windows, Byzantine slots and epidemic faults
+    # (fleet/scenarios.py); None = the cooperative, sunlit baseline
     scenario: Optional[ScenarioConfig] = None
     # inter-plane aggregation: "mean" | "median" | "trimmed_mean"
     aggregate: str = "mean"
-    # the reference's modeled ISL exchange; only None (the free
-    # revolution-boundary average) is ported, anything else raises
-    exchange: Optional[Any] = None
+    # the modeled ISL exchange (repro_torch.isl): contact windows,
+    # compressed deltas, bits and joules charged to the batteries and
+    # priced into the plan. None = the free revolution-boundary average
+    exchange: Optional[ExchangeConfig] = None
 
 
 class FleetTelemetry(NamedTuple):
@@ -142,7 +162,7 @@ class FleetTelemetry(NamedTuple):
     loss: Any                 # float32 mean loss (NaN unless trained)
     battery_j: Any            # float32 serving slot's battery at pass end
     n_steps: Any              # int32 valid steps
-    n_infected: Any           # int32 epidemic-faulted slots (0 here)
+    n_infected: Any           # int32 epidemic-faulted slots this pass
 
 
 def average_planes(trees):
@@ -165,15 +185,15 @@ class FleetResult:
     loss: np.ndarray          # (P, K) NaN unless trained
     battery_j: np.ndarray     # (P, K) serving slot's battery at pass end
     n_steps: np.ndarray       # (P, K)
-    n_infected: np.ndarray    # (P, K) epidemic-faulted slots (0 here)
+    n_infected: np.ndarray    # (P, K) epidemic-faulted slots per pass
     plan: DevicePassPlan      # (P, M) host copies
     energy: EnergyState       # (P, M) final fleet state, host copies
     failed: np.ndarray        # (P, M) final failure mask
-    fault_ttl: np.ndarray     # (P, M) epidemic counters (0 here)
+    fault_ttl: np.ndarray     # (P, M) final epidemic recovery counters
     state: List[SLTrainState]
-    isl_bits: Optional[np.ndarray] = None      # the modeled exchange's
-    isl_e_j: Optional[np.ndarray] = None       # meters: None without it
-    isl_contacts: Optional[np.ndarray] = None
+    isl_bits: Optional[np.ndarray] = None      # (P,) pushed wire bits
+    isl_e_j: Optional[np.ndarray] = None       # (P,) ISL transmit joules
+    isl_contacts: Optional[np.ndarray] = None  # (P,) pushes
 
     def summary(self) -> Dict[str, Any]:
         """A fleet-wide roll-up with ``ConstellationSim.summary``'s keys
@@ -202,6 +222,14 @@ class FleetResult:
         }
 
 
+def _key(seed: int, tag: int, *counters: int) -> int:
+    """A counter-hash key of (seed, tag, counters...), on host ints."""
+    key = _hash32((int(seed) ^ tag) & _M32)
+    for c in counters:
+        key = _hash32((key + int(c)) & _M32)
+    return key
+
+
 def failure_draws(seed: int, k: int, n_planes: int, fail_prob: float,
                   device, base: Optional[torch.Tensor] = None
                   ) -> torch.Tensor:
@@ -214,8 +242,31 @@ def failure_draws(seed: int, k: int, n_planes: int, fail_prob: float,
     that one, so they are held to no bits of the reference's. ``base``
     is ``_hash32(arange(n_planes))``, which does not depend on the
     key."""
-    key = _hash32((_hash32((int(seed) ^ _FAIL_TAG) & _M32) + int(k)) & _M32)
-    return uniforms(key, n_planes, device, base) < fail_prob
+    return uniforms(_key(seed, _FAIL_TAG, k), n_planes, device,
+                    base) < fail_prob
+
+
+def spread_draws(seed: int, k: int, n_planes: int, n_slots: int,
+                 beta: float, device, base: Optional[torch.Tensor] = None
+                 ) -> torch.Tensor:
+    """The ``(P, M)`` epidemic spread draws of pass ``k`` beyond the
+    precomputed horizon: True where a uniform hashed from (seed, k, p, m)
+    is below ``beta`` (``base`` is ``_hash32(arange(P * M))``). The
+    reference draws these from ``jax.random``; held to no bits of it."""
+    u = uniforms(_key(seed, _SPREAD_TAG, k), n_planes * n_slots, device,
+                 base)
+    return (u < beta).reshape(n_planes, n_slots)
+
+
+def noise_like(seed: int, k: int, plane: int, salt: int,
+               x: torch.Tensor) -> torch.Tensor:
+    """Standard normals shaped like ``x`` (its dtype) for the
+    ``scaled_noise`` corruption of leaf ``salt`` of plane ``plane`` at pass
+    ``k``: Box-Muller pairs of counter-hash uniforms, on x's device."""
+    n = x.numel()
+    u = uniforms(_key(seed, _NOISE_TAG, k, plane, salt), n + n % 2,
+                 x.device)
+    return box_muller(u)[:n].reshape(x.shape).to(x.dtype)
 
 
 def _clone_state(state: SLTrainState) -> SLTrainState:
@@ -226,18 +277,7 @@ def _clone_state(state: SLTrainState) -> SLTrainState:
         [t.clone() for t in _leaves(fields)])))
 
 
-def _refuse_next_slice(cfg: FleetConfig) -> None:
-    if cfg.exchange is not None:
-        raise NotImplementedError(
-            "FleetConfig.exchange (the modeled ISL exchange: contact "
-            f"windows, codecs, metered bits) is {NEXT_SLICE}; exchange=None "
-            "averages the planes at the revolution boundary")
-    scn = cfg.scenario
-    if scn is not None and (scn.byzantine is not None
-                            or scn.epidemic is not None):
-        raise NotImplementedError(
-            f"Byzantine and epidemic scenarios are {NEXT_SLICE}; the fleet "
-            "engine takes eclipse windows only")
+def _check_aggregate(cfg: FleetConfig) -> None:
     if cfg.aggregate not in AGGREGATION_MODES:
         raise ValueError(f"unknown aggregation mode {cfg.aggregate!r}; "
                          f"expected one of {AGGREGATION_MODES}")
@@ -258,7 +298,8 @@ class FleetEngine:
     ``device`` is the card unless the caller asks for the CPU.
 
     Every pass records an ``EV_PASS`` into its plane's telemetry ring,
-    every averaging an ``EV_EXCHANGE``; the rings come home with the
+    every exchange (the free average, a push or the sync exchange) an
+    ``EV_EXCHANGE``; the rings come home with the
     telemetry into ``self.recorder``. ``traces``, ``device_calls`` and
     ``host_syncs`` live on ``self.metrics`` (namespace ``fleet``), with
     one host sync per revolution when the telemetry is streamed.
@@ -276,7 +317,7 @@ class FleetEngine:
                  dtx_bits=None, schedule: Optional[EventSchedule] = None,
                  battery0=None, failed0=None, device="cuda"):
         cfg = FleetConfig() if cfg is None else cfg
-        _refuse_next_slice(cfg)
+        _check_aggregate(cfg)
         self.device = dev = resolve_device(device)
         own = getattr(batch_fn, "device", None)
         if own is not None and torch.device(own) != dev:
@@ -306,11 +347,38 @@ class FleetEngine:
                              f"but the fleet has {P}")
         self.schedule = schedule
         self.n_slots = M = schedule.n_slots
+        self.scenario_schedule = build_scenario_schedule(
+            cfg.scenario, P, M, schedule.n_passes, seed=cfg.seed)
 
         self.optimizer = resolve_optimizer(cfg.optimizer, lr=cfg.lr)
         if state is None:
             gen = torch.Generator(device=dev).manual_seed(cfg.seed)
             state = SLTrainState.create(*adapter.init(gen), self.optimizer)
+
+        # ---- the ISL exchange's statics (repro_torch.isl) ---------------
+        # the wire bits, the contact capacity and a push's energy follow
+        # from shapes; a payload over the capacity disables the exchange
+        # outright (a hard limit, not a price), and the amortized bits a
+        # pass feed the problem-(13) plan, so the codec moves the plan
+        exch = cfg.exchange
+        self.exchange = exch
+        self._ex_bits = 0.0
+        self._ex_energy_j = 0.0
+        self._ex_cap_bits = math.inf
+        fits = False
+        isl_extra_bits = 0.0
+        if exch is not None:
+            self._ex_bits = delta_payload_bits(
+                (state.params_a, state.params_b), exch.codec)
+            self._ex_cap_bits = exch.contact.capacity_bits(budget.isl,
+                                                           budget.link)
+            fits = self._ex_bits <= self._ex_cap_bits
+            if fits:
+                self._ex_energy_j = exch.contact.tx_energy_j(
+                    self._ex_bits, budget.isl, budget.link)
+                isl_extra_bits = self._ex_bits * exch.mean_contacts_per_pass(
+                    self.rev_len, int(cfg.avg_every))
+        self._ex_on = fits and P > 1
         self.dtx_bits = dtx_bits
         self.batch_size, self.costs, self.plan, self._scan_steps = \
             measure_and_plan(adapter, budget, batch_fn,
@@ -319,7 +387,7 @@ class FleetEngine:
                              ring_n=budget.plane.n_sats, dtx_bits=dtx_bits,
                              max_steps_per_pass=cfg.max_steps_per_pass,
                              min_fraction=cfg.min_fraction, plan=plan,
-                             device=dev)
+                             isl_extra_bits=isl_extra_bits, device=dev)
         if tuple(self.plan.n_steps.shape) != (P, M):
             raise ValueError(f"plan shape {tuple(self.plan.n_steps.shape)} "
                              f"!= fleet layout ({P}, {M})")
@@ -350,8 +418,19 @@ class FleetEngine:
         self._leave_pass = torch.from_numpy(schedule.leave_pass).to(dev)
         self._batch_idx = torch.zeros((P,), **i32)
         self._pass_idx = 0          # absolute pass index, across runs
+        # the epidemic's recovery counters ride the carry; its draws, its
+        # first slots and the Byzantine mask are inputs on the device
+        ssched = self.scenario_schedule
+        self._ttl = torch.zeros((P, M), **i32)
+        self._spread = torch.from_numpy(ssched.spread_draw).to(dev)
+        self._init_mask = torch.from_numpy(ssched.init_mask).to(dev)
+        self._byz = torch.from_numpy(ssched.byz_mask).to(dev)
+        self._ex_state = (
+            exchange_init([(s.params_a, s.params_b) for s in self.states], P)
+            if self._ex_on else null_exchange_state(P, dev))
 
-        if cfg.quantize_boundary and dev.type == "cuda":
+        int8_codec = self._ex_on and exch.codec.scheme == "int8"
+        if (cfg.quantize_boundary or int8_codec) and dev.type == "cuda":
             from repro_torch.kernels import _build
             _build.load("split_quant")     # build before the first pass
         self._pass_step = make_pass_step(
@@ -372,10 +451,10 @@ class FleetEngine:
     # ------------------------------------------------------- the program
     def _program(self, n_revolutions: int) -> Callable:
         """The fleet loop for R revolutions, built once per R:
-        ``(states, energy, failed, bidx, rings, k, sunlit) -> (states,
-        energy, failed, bidx, rings, k, FleetTelemetry)`` with no host
-        read; ``k`` is the absolute index of the first pass (a host int:
-        the pass count is known without the device)."""
+        ``(states, energy, failed, ttl, bidx, rings, ex, k, sunlit) ->
+        (states, energy, failed, ttl, bidx, rings, ex, k, FleetTelemetry)``
+        with no host read; ``k`` is the absolute index of the first pass
+        (a host int: the pass count is known without the device)."""
         fn = self._programs.get(n_revolutions)
         if fn is not None:
             return fn
@@ -389,7 +468,7 @@ class FleetEngine:
         horizon = self.schedule.n_passes
         fail_prob, seed = float(cfg.fail_prob), int(cfg.seed)
         avg_every = int(cfg.avg_every)
-        averaging = avg_every > 0 and P > 1
+        averaging = cfg.exchange is None and avg_every > 0 and P > 1
         recharge_j = float(cfg.recharge_w * self.budget.plane.pass_duration_s)
         reserve, cap = float(cfg.reserve_j), float(cfg.battery_j)
         join_pass, leave_pass = self._join_pass, self._leave_pass
@@ -398,7 +477,25 @@ class FleetEngine:
         slot_ids = torch.arange(M, dtype=torch.int64, device=dev)
         plane_base = _hash32(torch.arange(P, dtype=torch.int64, device=dev))
         no_fail = torch.zeros((P,), dtype=torch.bool, device=dev)
-        zeros_i32 = torch.zeros((P,), dtype=torch.int32, device=dev)
+        no_fault = torch.zeros((P, M), dtype=torch.bool, device=dev)
+        # the stressors, static: an absent one is no code at all
+        scn = cfg.scenario
+        epidemic = None if scn is None else scn.epidemic
+        byz_cfg = None if scn is None else scn.byzantine
+        spread, init_mask, byz = self._spread, self._init_mask, self._byz
+        slot_base = None if epidemic is None else _hash32(
+            torch.arange(P * M, dtype=torch.int64, device=dev))
+        # the planes that hold a Byzantine slot (the mask is static)
+        byz_planes = ([] if byz_cfg is None else
+                      [p for p in range(P)
+                       if self.scenario_schedule.byz_mask[p].any()])
+        # the exchange (off, over capacity or one plane: no code at all)
+        exch = self.exchange if self._ex_on else None
+        ex_async = exch is not None and exch.mode == "async"
+        ex_sync = exch is not None and exch.mode == "sync" and avg_every > 0
+        ex_kw = dict(wire_bits=float(self._ex_bits),
+                     e_push_j=float(self._ex_energy_j), battery_cap=cap,
+                     n_planes=P, action_failed=ACTION_FAILED)
 
         def fail_draw(k):
             if k < horizon:
@@ -407,8 +504,34 @@ class FleetEngine:
                 return failure_draws(seed, k, P, fail_prob, dev, plane_base)
             return no_fail
 
-        def fleet_pass(states, energy, failed, bidx, rings, k, sunlit):
-            # membership first, as the host scheduler: joins and leaves
+        def corrupt(st, old, lie, plane, k):
+            """A Byzantine pass: where ``lie``, the parameters the pass
+            made become ``old - scale * (new - old)`` (sign_flip) or
+            ``new + scale * N(0, 1)`` (scaled_noise), in place; the
+            optimizer state stays the honest trajectory's."""
+            scale = float(byz_cfg.scale)
+            for salt, tree in enumerate((st.params_a, st.params_b)):
+                for i, x in enumerate(_leaves(tree)):
+                    if not x.is_floating_point():
+                        continue
+                    if byz_cfg.mode == "sign_flip":
+                        o = old[salt][i]
+                        bad = o - scale * (x - o)
+                    else:
+                        bad = x + scale * noise_like(seed, k, plane,
+                                                     2 * i + salt, x)
+                    x.copy_(torch.where(lie, bad, x))
+
+        def fleet_pass(states, energy, failed, ttl, bidx, rings, k, sunlit):
+            # the epidemic first: faults spread along each ring, gated by
+            # the precomputed draws (or the counter hash beyond them)
+            faulted_m = no_fault
+            if epidemic is not None:
+                draw = (spread[:, k] if k < horizon else spread_draws(
+                    seed, k, P, M, epidemic.beta, dev, slot_base))
+                faulted_m, ttl = epidemic_step(ttl, draw, k, epidemic,
+                                               init_mask, xp=torch)
+            # membership next, as the host scheduler: joins and leaves
             # apply at pass start; the serving slot is ring[k % len(ring)]
             # over the members in slot order
             member = (join_pass <= k) & (k < leave_pass) & ~failed
@@ -420,13 +543,19 @@ class FleetEngine:
                                 .to(torch.int32), dim=1)
             at = slot[:, None]
 
-            # the host's order: the seeded failure draw, then the reserve
-            # skip, then the planned masked steps
+            # the host's order: the seeded failure draw, then the epidemic
+            # fault, then the reserve skip, then the planned masked steps
             fail = served & fail_draw(k)
+            fault = served & ~fail & faulted_m.gather(1, at)[:, 0]
             skip = energy.battery_j.gather(1, at)[:, 0] < reserve
-            trains = served & ~fail & ~skip
+            trains = served & ~fail & ~fault & ~skip
             n_valid = torch.where(trains, torch.clamp(
                 plan.n_steps.gather(1, at)[:, 0], max=K), 0)
+            old = {}
+            if byz_cfg is not None and byz_cfg.mode == "sign_flip":
+                old = {p: [[x.clone() for x in _leaves(t)] for t in
+                           (states[p].params_a, states[p].params_b)]
+                       for p in byz_planes}
             losses = []
             for p in range(P):
                 sat = at[p] + p * M
@@ -437,6 +566,11 @@ class FleetEngine:
                     lp.append(loss)
                 states[p] = st
                 losses.append(torch.stack(lp))
+            if byz_planes:
+                # a Byzantine serving slot corrupts the update it made
+                lie = byz.gather(1, at)[:, 0] & trains
+                for p in byz_planes:
+                    corrupt(states[p], old.get(p), lie[p], p, k)
             valid = step_ids < n_valid[:, None]
             loss = torch.where(
                 trains,
@@ -447,7 +581,7 @@ class FleetEngine:
             energy = es_mod.apply_pass(
                 energy, slot, plan.drain_j.gather(1, at)[:, 0],
                 plan.e_total_j.gather(1, at)[:, 0], cap, trains,
-                served & ~fail & skip)
+                served & ~fail & ~fault & skip)
             # recharge this pass's members that are still alive (a slot
             # that just failed collects nothing); an eclipsed plane
             # harvests nothing
@@ -458,27 +592,31 @@ class FleetEngine:
             kept = plan.kept_fraction.gather(1, at)[:, 0]
             action = torch.where(
                 ~served | fail, ACTION_FAILED, torch.where(
-                    skip, ACTION_SKIPPED, torch.where(
-                        kept < 1.0, ACTION_SHED, ACTION_TRAINED))
+                    fault, ACTION_FAULT, torch.where(
+                        skip, ACTION_SKIPPED, torch.where(
+                            kept < 1.0, ACTION_SHED, ACTION_TRAINED)))
             ).to(torch.int32)
             sat_id = torch.where(served, slot, -1).to(torch.int32)
             battery = torch.where(served, energy.battery_j.gather(1, at)[:, 0],
                                   math.nan)
+            n_inf = faulted_m.sum(dim=1).to(torch.int32)
             telem = FleetTelemetry(action, sat_id, loss, battery,
-                                   n_valid.to(torch.int32), zeros_i32)
+                                   n_valid.to(torch.int32), n_inf)
             # flight recorder: one EV_PASS per (plane, pass), t the
             # absolute pass index
             lit = (torch.ones((P,), device=dev) if sunlit is None
                    else sunlit.to(torch.float32))
             payload = torch.stack([
                 action.to(torch.float32), battery, loss,
-                n_valid.to(torch.float32), kept, fail.to(torch.float32), lit,
-                zeros_i32.to(torch.float32)], dim=1)
+                n_valid.to(torch.float32), kept,
+                (fail | fault).to(torch.float32), lit,
+                n_inf.to(torch.float32)], dim=1)
             rings = [ring_record(rings[p], EV_PASS, k, sat_id[p], payload[p])
                      for p in range(P)]
-            return states, energy, failed, bidx, rings, telem
+            return states, energy, failed, ttl, bidx, rings, telem
 
-        def closed_loop(states, energy, failed, bidx, rings, k, sunlit):
+        def closed_loop(states, energy, failed, ttl, bidx, rings, ex, k,
+                        sunlit):
             telem = FleetTelemetry(*[
                 torch.empty((R * L, P), dtype=dt, device=dev)
                 for dt in (torch.int32, torch.int32, torch.float32,
@@ -486,26 +624,35 @@ class FleetEngine:
             i = 0
             for _ in range(R):
                 for _ in range(L):
-                    states, energy, failed, bidx, rings, row = fleet_pass(
-                        states, energy, failed, bidx, rings, k,
-                        None if sunlit is None else sunlit[i])
+                    states, energy, failed, ttl, bidx, rings, row = \
+                        fleet_pass(states, energy, failed, ttl, bidx, rings,
+                                   k, None if sunlit is None else sunlit[i])
                     for dst, v in zip(telem, row):
                         dst[i].copy_(v)
+                    if ex_async:
+                        # contact-window gossip after the pass: delta
+                        # push, staleness-weighted merge, battery charge
+                        states, ex, energy, rings = async_gossip_step(
+                            exch, states, ex, energy, rings, k, row.sat,
+                            row.action, **ex_kw)
                     i += 1
                     k += 1
-                if averaging and (k // L) % avg_every == 0:
-                    # the inter-plane exchange at the revolution boundary:
-                    # every float leaf of every plane's state (params and
+                boundary = avg_every > 0 and (k // L) % avg_every == 0
+                if ex_sync:
+                    # the boundary exchange through the codec and the
+                    # meter; the last pass's slot pays
+                    states, ex, energy, rings = sync_exchange_step(
+                        exch, cfg.aggregate, states, ex, energy, rings, k,
+                        row.sat, row.action, boundary, **ex_kw)
+                elif averaging and boundary:
+                    # the free exchange at the revolution boundary: every
+                    # float leaf of every plane's state (params and
                     # optimizer state) becomes the planes' center
-                    for col in zip(*[_leaves(s._fields()) for s in states]):
-                        if col[0].is_floating_point():
-                            c = plane_center(torch.stack(col), cfg.aggregate)
-                            for x in col:
-                                x.copy_(c)
+                    aggregate_into(states, cfg.aggregate)
                     rings = [ring_record(r, EV_EXCHANGE, k, -1, (1.0,))
                              for r in rings]
-            return states, energy, failed, bidx, rings, k, FleetTelemetry(
-                *[t.reshape(R, L, P) for t in telem])
+            return states, energy, failed, ttl, bidx, rings, ex, k, \
+                FleetTelemetry(*[t.reshape(R, L, P) for t in telem])
 
         self._programs[n_revolutions] = closed_loop
         return closed_loop
@@ -525,8 +672,9 @@ class FleetEngine:
     # --------------------------------------------------------------- run
     def run(self, n_revolutions: Optional[int] = None, *,
             stream_telemetry: bool = False) -> FleetResult:
-        """Run R fleet revolutions; chainable (states, batteries, failures
-        and the pass index carry over).
+        """Run R fleet revolutions; chainable (states, batteries, failures,
+        epidemic counters, the exchange's state and the pass index carry
+        over).
 
         ``stream_telemetry=True`` dispatches one revolution at a time and
         reads its telemetry (exactly one host sync per revolution); the
@@ -541,35 +689,42 @@ class FleetEngine:
             states.append(dedupe_state_buffers(st))
             st.mark_consumed()
         energy, failed, bidx = self.energy, self._failed, self._batch_idx
+        ttl, ex = self._ttl, self._ex_state
         P, L = self.n_planes, self.rev_len
 
         chunks = []
         r_chunk = 1 if stream_telemetry else R
         fn = self._program(r_chunk)
+        # L passes and the exchange's events a revolution, per plane: one
+        # at the boundary, or one per contact window when gossiping
+        n_ex = (L // self.exchange.contact.period + 1
+                if self._ex_on and self.exchange.mode == "async" else 1)
         for _ in range(R if stream_telemetry else 1):
-            # L passes and one exchange marker a revolution, per plane
-            rings = [ring_init(r_chunk * (L + 1), device=self.device)
+            rings = [ring_init(r_chunk * (L + n_ex), device=self.device)
                      for _ in range(P)]
             sunlit = self._sunlit(self._pass_idx, r_chunk * L)
             t0 = time.perf_counter()
             with _no_host_sync(self.device):
-                states, energy, failed, bidx, rings, k, telem = fn(
-                    states, energy, failed, bidx, rings, self._pass_idx,
-                    sunlit)
+                states, energy, failed, ttl, bidx, rings, ex, k, telem = fn(
+                    states, energy, failed, ttl, bidx, rings, ex,
+                    self._pass_idx, sunlit)
             # commit the carry per dispatch: an interrupted streaming
             # study keeps every finished revolution and stays chainable
             self.states, self.energy, self._failed = states, energy, failed
+            self._ttl, self._ex_state = ttl, ex
             self._batch_idx, self._pass_idx = bidx, k
             self.metrics.inc("device_calls")
             ring = TelemetryRing(*[torch.stack(f) for f in zip(*rings)])
-            host = _to_host(*telem, *energy, failed.to(torch.int32),
+            host = _to_host(*telem, *energy, failed.to(torch.int32), ttl,
+                            ex.bits, ex.e_j, ex.n_contacts,
                             *ring)                       # the ONE sync
             self.metrics.inc("host_syncs")
             self.metrics.histogram("dispatch_s").record(
                 time.perf_counter() - t0)
             energy_h = EnergyState(*host[6:10])
             failed_h = host[10].astype(bool)
-            self.recorder.ingest(TelemetryRing(*host[11:]))
+            ttl_h, meters = host[11], host[12:15]
+            self.recorder.ingest(TelemetryRing(*host[15:]))
             chunks.append(FleetTelemetry(*host[:6]))
 
         telem = FleetTelemetry(*[np.concatenate(xs) for xs in zip(*chunks)])
@@ -582,7 +737,8 @@ class FleetEngine:
             loss=flat(telem.loss), battery_j=flat(telem.battery_j),
             n_steps=flat(telem.n_steps), n_infected=flat(telem.n_infected),
             plan=self._host_plan, energy=energy_h, failed=failed_h,
-            fault_ttl=np.zeros(failed_h.shape, np.int32), state=self.states)
+            fault_ttl=ttl_h, state=self.states, isl_bits=meters[0],
+            isl_e_j=meters[1], isl_contacts=meters[2])
 
 
 def _smoke(n_sats: int = 8, n_planes: int = 2, n_revolutions: int = 2,

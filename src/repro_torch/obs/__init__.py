@@ -1,9 +1,10 @@
-"""Flight recorder: telemetry rings on tensors and host metrics (the
-port of ``repro/obs``; the timeline export comes with the fleet slice).
+"""Flight recorder: telemetry rings on tensors, host metrics and the
+timeline export (the port of ``repro/obs``).
 
 See :mod:`repro_torch.obs.ring` (event rings and
-:class:`FlightRecorder`) and :mod:`repro_torch.obs.metrics` (registry and
-the ``sync_budget`` guard).
+:class:`FlightRecorder`), :mod:`repro_torch.obs.metrics` (registry and
+the ``sync_budget`` guard) and :mod:`repro_torch.obs.timeline`
+(Chrome-trace / Perfetto rendering and a text digest).
 """
 from .metrics import (Counter, Gauge, Histogram, MetricsRegistry,
                       SyncBudgetExceeded, counter_property,
@@ -13,6 +14,8 @@ from .ring import (EV_EXCHANGE, EV_PASS, EV_SERVE, EVENT_NAMES,
                    PAYLOAD_WIDTH, SERVE_FIELDS, FlightRecorder,
                    RingEvents, TelemetryRing, flush, merge_events,
                    payload_column, record, ring_init)
+from .timeline import (timeline_summary, to_chrome_trace,
+                       validate_chrome_trace, write_chrome_trace)
 
 __all__ = [
     "Counter", "Gauge", "Histogram", "MetricsRegistry",
@@ -22,4 +25,6 @@ __all__ = [
     "EXCHANGE_FIELDS", "FIELDS_BY_KIND", "PASS_FIELDS", "PAYLOAD_WIDTH",
     "SERVE_FIELDS", "FlightRecorder", "RingEvents", "TelemetryRing",
     "flush", "merge_events", "payload_column", "record", "ring_init",
+    "timeline_summary", "to_chrome_trace", "validate_chrome_trace",
+    "write_chrome_trace",
 ]

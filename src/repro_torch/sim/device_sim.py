@@ -496,3 +496,78 @@ class DeviceConstellationSim:
             action=telem.action, loss=telem.loss,
             battery_j=telem.battery_j, n_steps=telem.n_steps,
             plan=self._host_plan, energy=energy_h, state=state)
+
+
+def _smoke(argv=None) -> Dict[str, Any]:
+    """``python -m repro_torch.sim.device_sim --smoke [--device cuda|cpu]``:
+    the host engine against the device engine on a 4-satellite ring over
+    16 passes (the reference smoke's config), with reserve skips: equal
+    actions, the last loss within 2e-4, the energy within 1e-5, and one
+    build and at most one sync per revolution. Runs on the card unless
+    ``--device cpu`` is given; returns both summaries."""
+    import argparse
+
+    from repro_torch.core.constellation import (ConstellationConfig,
+                                                ConstellationSim)
+    from repro_torch.core.orbits import OrbitalPlane
+    from repro_torch.core.sl_step import autoencoder_adapter
+    from repro_torch.sim.data import DeviceImageryShards
+
+    ap = argparse.ArgumentParser(prog="python -m repro_torch.sim.device_sim")
+    ap.add_argument("--smoke", action="store_true",
+                    help="the host-vs-device smoke (the only mode)")
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (hand-written kernels) or cpu (their plain "
+                    "PyTorch versions)")
+    args = ap.parse_args(argv)
+    shards = DeviceImageryShards(img=32, batch=4, device=args.device)
+    adapter = autoencoder_adapter(cut=5, img=32)
+    # n_items scales a pass's drain to ~48 J, so the 200 J batteries reach
+    # the reserve-skip policy mid-run
+    budget = PassBudget(plane=OrbitalPlane(n_sats=4), n_items=4e6)
+
+    def sim():
+        return ConstellationSim(adapter, budget, shards, ConstellationConfig(
+            n_passes=16, batch_size=4, battery_j=200.0, recharge_w=0.01,
+            reserve_j=150.0, max_steps_per_pass=4), device=args.device)
+
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        t0 = time.perf_counter()
+        host = sim()
+        host.run()
+        t1 = time.perf_counter()
+        dev = sim()
+        dev.run(engine="device")
+        t2 = time.perf_counter()
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    hs, ds = host.summary(), dev.summary()
+    eng = dev.device_engine
+    print(f"host   {t1 - t0:6.1f} s  {hs}")
+    print(f"device {t2 - t1:6.1f} s  {ds}  (traces={eng.traces}, "
+          f"syncs={eng.host_syncs})")
+    actions = [(h.action, d.action) for h, d in zip(host.records,
+                                                    dev.records)]
+    if not all(h == d for h, d in actions):
+        raise AssertionError(f"actions differ: {actions}")
+    if not hs["skipped"] == ds["skipped"] > 0:
+        raise AssertionError(f"no reserve skip, or skips differ: {actions}")
+    if abs(ds["loss_last"] - hs["loss_last"]) > \
+            2e-5 + 2e-4 * abs(hs["loss_last"]):
+        raise AssertionError(f"last loss {ds['loss_last']} != host "
+                             f"{hs['loss_last']}")
+    if abs(ds["E_total_J"] - hs["E_total_J"]) > 1e-5 * abs(hs["E_total_J"]):
+        raise AssertionError(f"energy {ds['E_total_J']} != host "
+                             f"{hs['E_total_J']}")
+    if eng.traces != 1 or eng.host_syncs > eng.cfg.n_revolutions:
+        raise AssertionError("more than one host sync per revolution")
+    print("device-sim smoke: OK (host == device closed loop)")
+    return {"host": hs, "device": ds}
+
+
+if __name__ == "__main__":
+    import sys
+
+    _smoke(sys.argv[1:])

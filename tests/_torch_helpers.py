@@ -1,6 +1,7 @@
 """Helpers for the tests that hold ``repro_torch`` against ``repro``:
 numpy inputs handed to both packages. Sets no process-wide JAX state."""
 import contextlib
+import types
 
 import jax
 import jax.numpy as jnp
@@ -62,6 +63,23 @@ class BatchTable:
                                       dtype=self.labels.dtype, device="meta")}
 
     batch_at = __call__
+
+
+def fleet_host_view(fleet):
+    """A port fleet's host arrays under the attribute names the
+    reference's NumPy oracles (``fleet.scenarios.oracle_actions``,
+    ``isl.exchange.oracle_exchange``) read; call it before the fleet
+    runs."""
+    from repro_torch.sim.energy_state import EnergyState
+
+    return types.SimpleNamespace(
+        schedule=fleet.schedule, cfg=fleet.cfg,
+        scenario_schedule=fleet.scenario_schedule, plan=fleet._host_plan,
+        energy=EnergyState(*[t.cpu().numpy() for t in fleet.energy]),
+        _failed=fleet._failed.cpu().numpy(), budget=fleet.budget,
+        exchange=fleet.exchange, _ex_on=fleet._ex_on,
+        _ex_bits=fleet._ex_bits, _ex_energy_j=fleet._ex_energy_j,
+        rev_len=fleet.rev_len, n_planes=fleet.n_planes)
 
 
 @contextlib.contextmanager

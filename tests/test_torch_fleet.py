@@ -19,7 +19,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_helpers import BatchTable, one_torch_thread
+from _torch_helpers import BatchTable, fleet_host_view, one_torch_thread
 from repro.core import constellation as jcon
 from repro.core import energy as jenergy
 from repro.core import orbits as jorbits
@@ -40,12 +40,16 @@ from repro_torch.fleet import (ByzantineConfig, EclipseConfig, EpidemicConfig,
                                FleetConfig, FleetEngine, ScenarioConfig,
                                aggregate_planes, average_planes,
                                build_event_schedule, build_scenario_schedule,
-                               failure_draws, static_schedule)
+                               epidemic_oracle, epidemic_step,
+                               failure_draws, oracle_actions,
+                               static_schedule)
 from repro_torch.fleet import __main__ as fleet_main
+from repro_torch.isl import ExchangeConfig
 from repro_torch.models.param import from_jax_params, to_jax_params
 from repro_torch.obs.ring import EV_EXCHANGE, EV_PASS
 from repro_torch.sim import DeviceImageryShards, plan_ring_passes
-from repro_torch.sim.device_sim import (ACTION_NAMES, ACTION_TRAINED,
+from repro_torch.sim.device_sim import (ACTION_FAILED, ACTION_FAULT,
+                                        ACTION_NAMES, ACTION_TRAINED,
                                         meta_batch)
 from repro_torch.train.optimizer import resolve_optimizer
 
@@ -518,19 +522,163 @@ def test_chaining_counters_and_draws_beyond_the_horizon():
 
 @pytest.mark.parametrize("what", ["exchange", "byzantine", "epidemic",
                                   "smoke"])
-def test_next_slice_configs_raise(what):
-    budget = _budget()
+def test_next_slice_configs_raise(what, monkeypatch):
+    """The configs the fleet refused before the ISL exchange and the
+    degraded-ops stressors were ported now construct and run one
+    revolution on the CPU (the name and ids are kept): an async exchange
+    meters its pushes, a Byzantine plane's checkpoint leaves the honest
+    run's, an epidemic faults passes, and ``--scenario degraded`` returns
+    its summary with faults."""
     if what == "smoke":
-        with pytest.raises(NotImplementedError, match="slice 10"):
-            fleet_main.main(["--scenario", "degraded", "--device", CPU])
+        monkeypatch.setenv("REPRO_FLEET_SMOKE_SATS", "4")
+        s = fleet_main.main(["--scenario", "degraded", "--device", CPU])
+        assert s["faulted"] > 0 and s["passes"] == 2 * 2 * 4
         return
-    cfg = {"exchange": FleetConfig(exchange=object()),
-           "byzantine": FleetConfig(scenario=ScenarioConfig(
-               byzantine=ByzantineConfig(planes=(0,)))),
+    cfg = {"exchange": FleetConfig(n_planes=2, avg_every=0,
+                                   exchange=ExchangeConfig()),
+           "byzantine": FleetConfig(n_planes=2, avg_every=0,
+                                    scenario=ScenarioConfig(
+                                        byzantine=ByzantineConfig(
+                                            planes=(0,)))),
            "epidemic": FleetConfig(scenario=ScenarioConfig(
                epidemic=EpidemicConfig()))}[what]
-    with pytest.raises(NotImplementedError, match="slice 10"):
-        FleetEngine(ADAPTER, budget, SHARDS, cfg, device=CPU)
+    cfg = dataclasses.replace(cfg, n_revolutions=1, max_steps_per_pass=2)
+    fleet = FleetEngine(ADAPTER, _budget(), SHARDS, cfg, state=_init(),
+                        device=CPU)
+    expect = oracle_actions(fleet)
+    res = fleet.run()
+    np.testing.assert_array_equal(res.action, expect)
+    assert res.action.shape == (cfg.n_planes, N)
+    if what == "exchange":
+        assert fleet._ex_on and (res.isl_contacts == N).all()
+        assert (res.isl_bits > 0).all() and (res.isl_e_j > 0).all()
+    elif what == "byzantine":
+        a, b = (_leaves((s.params_a, s.params_b)) for s in res.state)
+        assert not any(torch.equal(x, y) for x, y in zip(a, b))
+        assert np.isfinite(res.loss).all()
+    else:
+        assert (res.action == ACTION_FAULT).any()
+        assert res.summary()["faulted"] == int((res.action == ACTION_FAULT)
+                                               .sum())
+
+
+# ------------------------------------------- degraded-ops stressors
+
+@pytest.mark.parametrize("beta,ttl,init,start,M", [
+    (1.0, 2, (0,), 0, 6), (0.0, 3, (2,), 1, 4), (0.5, 4, (0, 3), 0, 6),
+    (0.3, 1, (1,), 2, 5)])
+def test_epidemic_matches_reference(beta, ttl, init, start, M):
+    """``epidemic_step`` (NumPy and tensors) and ``epidemic_oracle`` equal
+    the reference's, bit for bit, on the reference's draws."""
+    kw = dict(beta=beta, ttl=ttl, init_slots=init, start=start)
+    scn = ScenarioConfig(epidemic=EpidemicConfig(**kw))
+    jscn_cfg = jscn.ScenarioConfig(epidemic=jscn.EpidemicConfig(**kw))
+    sched = build_scenario_schedule(scn, 3, M, 10, seed=2)
+    want = jscn.epidemic_oracle(jscn_cfg, jscn.build_scenario_schedule(
+        jscn_cfg, 3, M, 10, seed=2))
+    np.testing.assert_array_equal(epidemic_oracle(scn, sched), want)
+    ttl_t = torch.zeros((3, M), dtype=torch.int32)
+    ttl_j = np.zeros((3, M), np.int64)
+    for k in range(10):
+        f_t, ttl_t = epidemic_step(ttl_t, torch.from_numpy(
+            sched.spread_draw[:, k]), k, scn.epidemic,
+            torch.from_numpy(sched.init_mask), xp=torch)
+        np.testing.assert_array_equal(f_t.numpy(), want[:, k])
+        for p in range(3):
+            f_j, ttl_j[p] = jscn.epidemic_step(
+                ttl_j[p], sched.spread_draw[p, k], k, jscn_cfg.epidemic,
+                sched.init_mask)
+            np.testing.assert_array_equal(f_j, want[p, k])
+        np.testing.assert_array_equal(ttl_t.numpy(), ttl_j)
+    assert not epidemic_oracle(None, sched).any()
+
+
+def test_epidemic_prefix_parity_and_beyond_horizon():
+    """The fleet's actions equal the oracle over the precomputed horizon
+    (the port's and the reference's, on the same host arrays); chained
+    runs past it keep drawing epidemic spreads and failures (from the
+    counter hash)."""
+    scn = ScenarioConfig(epidemic=EpidemicConfig(
+        beta=0.5, ttl=4, init_slots=(0, 3), start=0))
+    fleet = FleetEngine(ADAPTER, _budget(n_sats=6), SHARDS, FleetConfig(
+        n_planes=2, n_revolutions=2, max_steps_per_pass=2, seed=3,
+        fail_prob=0.1, avg_every=0, scenario=scn), device=CPU)
+    expect = oracle_actions(fleet)
+    np.testing.assert_array_equal(expect, jscn.oracle_actions(
+        fleet_host_view(fleet)))
+    res = fleet.run(stream_telemetry=True)
+    np.testing.assert_array_equal(res.action, expect)
+    assert (res.action == ACTION_FAULT).sum() > 0
+    assert res.summary()["faulted"] == (res.action == ACTION_FAULT).sum()
+    # every faulted slot is counted, serving or not
+    assert (res.n_infected >= (res.action == ACTION_FAULT)).all()
+    assert res.n_infected.max() > 1
+    ev = fleet.recorder.events()
+    pay = ev["payload"][ev["kind"] == EV_PASS]
+    np.testing.assert_array_equal(pay[:, 7], res.n_infected.T.reshape(-1))
+
+    res2 = fleet.run(4, stream_telemetry=True)
+    assert fleet.traces == 1 and fleet.host_syncs == 6
+    assert (res2.action == ACTION_FAULT).sum() > 0, "epidemic froze"
+    assert (res2.action == ACTION_FAILED).sum() > 0, "failures froze"
+    assert fleet._pass_idx == 36
+
+
+def test_epidemic_faulted_slot_pays_no_energy():
+    """A faulted pass is a masked no-op: no drain, no valid steps, no
+    loss; the slot trains again once its ttl has run out."""
+    scn = ScenarioConfig(epidemic=EpidemicConfig(
+        beta=0.0, ttl=2, init_slots=(1,), start=1))
+    fleet = FleetEngine(ADAPTER, _budget(), SHARDS, FleetConfig(
+        n_planes=1, n_revolutions=3, max_steps_per_pass=2, seed=0,
+        scenario=scn), device=CPU)
+    expect = oracle_actions(fleet)
+    res = fleet.run()
+    np.testing.assert_array_equal(res.action, expect)
+    # slot 1 serves passes 1, 5, 9; infected at passes 1-2 only
+    assert res.action[0, 1] == ACTION_FAULT
+    assert res.n_steps[0, 1] == 0 and not np.isfinite(res.loss[0, 1])
+    assert res.action[0, 5] == ACTION_TRAINED
+    assert res.action[0, 9] == ACTION_TRAINED
+    assert res.energy.passes_served[0, 1] == 2
+    assert res.energy.passes_skipped[0, 1] == 0
+    assert (res.fault_ttl == 0).all()
+
+
+@pytest.fixture(scope="module")
+def clean_four_planes():
+    return _four_planes(None, "mean")
+
+
+def _four_planes(scenario, aggregate):
+    """4 planes x 4 satellites x 4 revolutions, averaged every revolution:
+    the mean of the honest planes' (0-2) last losses."""
+    fleet = FleetEngine(ADAPTER, _budget(), SHARDS, FleetConfig(
+        n_planes=4, n_revolutions=4, max_steps_per_pass=2, seed=0,
+        avg_every=1, scenario=scenario, aggregate=aggregate), device=CPU)
+    res = fleet.run(stream_telemetry=True)
+    assert fleet.traces == 1 and fleet.host_syncs == 4
+    return float(np.mean([row[np.isfinite(row)][-1]
+                          for row in res.loss[:3]]))
+
+
+@pytest.mark.parametrize("aggregate,mode,scale", [
+    ("trimmed_mean", "sign_flip", 8.0), ("median", "scaled_noise", 5.0)])
+def test_robust_aggregation_recovers_from_a_byzantine_plane(
+        clean_four_planes, aggregate, mode, scale):
+    """One of 4 planes corrupts every update it makes (the reference's
+    tests/test_scenarios.py:120,150, at 4 revolutions of 2 steps a pass):
+    the robust center recovers the honest planes' last loss to within 10%
+    of the clean run, where the plain mean is poisoned (sign_flip)."""
+    byz = ScenarioConfig(byzantine=ByzantineConfig(planes=(3,), mode=mode,
+                                                   scale=scale))
+    clean = clean_four_planes
+    assert np.isfinite(clean) and clean > 0
+    recovered = _four_planes(byz, aggregate)
+    assert abs(recovered - clean) <= 0.10 * clean, (recovered, clean)
+    if mode == "sign_flip":
+        poisoned = _four_planes(byz, "mean")
+        assert poisoned > 10.0 * clean, (poisoned, clean)
 
 
 def test_fleet_runs_on_cuda_unless_asked(monkeypatch):

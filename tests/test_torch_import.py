@@ -39,7 +39,11 @@ def test_modules_and_chip_smoke_import_without_jax():
             "repro_torch.launch.device_sim", "repro_torch.fleet",
             "repro_torch.fleet.engine", "repro_torch.fleet.events",
             "repro_torch.fleet.scenarios",
-            "repro_torch.fleet.__main__"} <= set(mods)
+            "repro_torch.fleet.__main__", "repro_torch.isl",
+            "repro_torch.isl.link", "repro_torch.isl.codec",
+            "repro_torch.isl.exchange", "repro_torch.isl.__main__",
+            "repro_torch.obs.timeline",
+            "repro_torch.train.compression"} <= set(mods)
     code = ("import sys\n"
             "sys.modules['jax'] = None\n"
             "sys.modules['repro'] = None\n"
@@ -77,7 +81,10 @@ def test_entry_points_refuse_cpu_unless_asked(monkeypatch):
 
 def _entry_points_refuse_cpu_unless_asked(monkeypatch):
     from repro_torch import configs
+    from repro_torch.fleet import __main__ as fleet_main
+    from repro_torch.isl import __main__ as isl_main
     from repro_torch.launch import constellation, device_sim, serve
+    from repro_torch.sim import device_sim as sim_device_sim
     from repro_torch.models import lm
     from repro_torch.serve.engine import DecodeEngine
     from repro_torch.serve_fleet.engine import SplitDecodeEngine
@@ -106,6 +113,14 @@ def _entry_points_refuse_cpu_unless_asked(monkeypatch):
     assert summary["passes"] == 25 and summary["trained"] == 25
     with pytest.raises(RuntimeError, match="cuda"):
         device_sim.main(["--small"])
+    # the ISL smoke, the degraded-ops smoke and the device-sim smoke (each
+    # run with --device cpu in tests/test_torch_isl.py)
+    with pytest.raises(RuntimeError, match="cuda"):
+        isl_main.main([])
+    with pytest.raises(RuntimeError, match="cuda"):
+        fleet_main.main(["--scenario", "degraded"])
+    with pytest.raises(RuntimeError, match="cuda"):
+        sim_device_sim._smoke(["--smoke"])
 
 
 def test_chip_smoke_fails_without_a_card():
