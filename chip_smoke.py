@@ -9,8 +9,9 @@ Phases, each fatal on failure:
   1. device report (name, power limit);
   2. build the CUDA kernels from ``src/repro_torch/csrc`` into ``build/``;
   3. each attention kernel against its plain PyTorch version at
-     SmolLM-360M's head geometry, at Zamba2-1.2B's (MHA, 32 heads) and
-     at head dim 16 (the smoke configs' heads), the Mamba-2 chunked scan
+     SmolLM-360M's head geometry, at Zamba2-1.2B's (MHA, 32 heads), at
+     Granite-3.0-2B's (32 heads, 8 KV heads) and at head dim 16 (the
+     smoke configs' heads), the Mamba-2 chunked scan
      against its plain version at Zamba2's full-width heads, the mLSTM
      chunkwise scan against its plain version at xLSTM-1.3B's (H=4,
      P=1024), and both entries of the SL boundary quantizer (codes and
@@ -80,12 +81,27 @@ Phases, each fatal on failure:
      against the same push on the host, and the codec's largest leaf
      timed against its bound; (b) ``python -m repro_torch.isl`` and
      ``python -m repro_torch.fleet --scenario degraded`` at their
-     reference sizes on the card.
+     reference sizes on the card;
+ 11. the serving fleet (repro_torch.serve_fleet): (a) full-width
+     Granite-3.0-2B split at unit 20 through both attention kernels
+     (phase 4's checks: exactly 40 B2 launches a prefill and 40 B3 a
+     decode step, none of B1, B4 or B5), the reference smoke's
+     pass-window traffic (8 windows, prompts from PassWindowTraffic)
+     served by its split engine, the measured rate as a ServeCost, and
+     the serving fleet on the card at the reference smoke's size (2 x 8,
+     24 windows) and at a constellation's (4 x 256, 1,000 windows of the
+     pass duration, 10^6 users/day), each held to the NumPy oracle with
+     one host sync under sync-debug "error" and one EV_SERVE per (plane,
+     window), with host ms a window and the card's share of 100 windows;
+     (b) ``python -m repro_torch.serve_fleet``, ``python -m
+     repro_torch.obs``, ``python -m repro_torch.obs render --planes 4
+     --sats 256 --scenario degraded --serve`` and the paper's tables
+     (Fig. 3's claims) with the float64 solver on the card.
 Each phase prints its elapsed time. Every profile is framed by marker
 kernels (cuda_events), since torch.profiler can drop a trace's first
 kernels.
-Phases 4, 6 and 7 also print the satellite's joules per token at their
-measured rate (serve_cost). The last two lines are the kernels' JSON
+Phases 4, 6, 7 and 11a also print the satellite's joules per token at
+their measured rate (serve_cost). The last two lines are the kernels' JSON
 record and the result JSON.
 Exits non-zero without a CUDA device.
 """
@@ -129,14 +145,25 @@ from repro_torch.kernels import (_build, decode_attn, flash_attn,  # noqa: E402
                                  mamba_scan, mlstm_scan, ops, split_quant)
 from repro_torch.models import lm  # noqa: E402
 from repro_torch.models.param import map_tree  # noqa: E402
-from repro_torch.obs.ring import EV_EXCHANGE  # noqa: E402
+from repro_torch.obs.ring import EV_EXCHANGE, EV_SERVE  # noqa: E402
 from repro_torch.train.optimizer import resolve_optimizer  # noqa: E402
 from repro_torch.utils.bucketing import bucket_size  # noqa: E402
 from repro_torch.utils.treeutil import tree_leaves  # noqa: E402
 from repro_torch.models.layers import Ctx  # noqa: E402
 from repro_torch.serve.engine import DecodeEngine, Request  # noqa: E402
-from repro_torch.serve_fleet.engine import (SplitDecodeEngine,  # noqa: E402
-                                            serve_cost)
+from repro_torch.serve_fleet import __main__ as serve_fleet_main  # noqa: E402
+from repro_torch.serve_fleet.__main__ import (  # noqa: E402
+    SMOKE_TRAFFIC, SMOKE_TRAIN, serve_windows)
+from repro_torch.serve_fleet.__main__ import (  # noqa: E402
+    smoke_fleet as serve_fleet_smoke_fleet)
+from repro_torch.serve_fleet.engine import (  # noqa: E402
+    FleetServeEngine, ServeFleetConfig, SplitDecodeEngine, TrainLoad,
+    assert_host_parity, serve_cost)
+from repro_torch.serve_fleet.traffic import (PassWindowTraffic,  # noqa: E402
+                                             TrafficConfig)
+from repro_torch.launch import paper_tables  # noqa: E402
+from repro_torch.obs import __main__ as obs_main  # noqa: E402
+from repro_torch.obs.metrics import sync_budget  # noqa: E402
 from repro_torch.sim import (ACTION_NAMES, ACTION_SHED,  # noqa: E402
                              ACTION_SKIPPED, ACTION_TRAINED,
                              DeviceConstellationSim, DeviceImageryShards,
@@ -149,6 +176,8 @@ PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 TOL = {torch.bfloat16: 2e-2, torch.float32: 2e-5}    # as the CPU tests
 H, KV, D = 15, 5, 64                                 # SmolLM-360M heads
 MHA_H = 32                                           # Zamba2-1.2B: H = KV
+GRANITE_H, GRANITE_KV = 32, 8                        # Granite-3.0-2B: group 4
+GRANITE_PREFILL_S = (5, 512)     # 5: the serving traffic's prompts (11a)
 SMOKE_H, SMOKE_D = 4, 16               # the smoke configs' heads (Zamba2's)
 PREFILL_S = (1, 77, 498, 512, 1000)     # 498: the longest served prompt
 DECODE_B, DECODE_S = 8, 2048
@@ -481,6 +510,14 @@ SERVED = {
 }
 SERVED["xlstm_1_3b"] = dict(dims=(48, 2048, 50304), cut=3,
                             per_prompt={"mlstm_scan": 42}, per_step={})
+# Phase 11a: Granite-3.0-2B (the serving fleet's model, as the reference
+# smoke serves it), 40 attention layers, split at n_units // 2 = 20.
+SERVED["granite_3_2b"] = dict(dims=(40, 2048, 49155), cut=20,
+                              per_prompt={"flash_attn_fwd": 40},
+                              per_step={"decode_attn": 40})
+# The served engines' slots, cache length and activations.
+SERVE_KW = dict(n_slots=8, s_max=2048, act_dtype=torch.bfloat16,
+                device="cuda")
 WRAPPERS = {"flash_attn_fwd": flash_attn.flash_attention_fwd,
             "decode_attn": decode_attn.decode_attention,
             "mamba_scan": mamba_scan.mamba_chunk_scan,
@@ -572,14 +609,16 @@ def logits_close(lk, lp, what, tol_of_max=LOGITS_TOL_OF_MAX):
 
 
 def serve_full_width(arch, label):
+    """Phases 4, 6, 7 and 11a's first half: the served model at full
+    width. Returns (the kernels' launches on the served run, the split
+    engine, the f32 weights)."""
     spec = SERVED[arch]
     cfg = configs.get(arch)
     check((cfg.n_layers, cfg.d_model, cfg.vocab) == spec["dims"],
           f"full-width {arch} config")
     cut = spec["cut"]
     params = lm.init(cfg, torch.Generator(device="cuda").manual_seed(0))
-    kw = dict(n_slots=8, s_max=2048, act_dtype=torch.bfloat16, device="cuda")
-    split = SplitDecodeEngine(cfg, params, cut_units=cut, **kw)
+    split = SplitDecodeEngine(cfg, params, cut_units=cut, **SERVE_KW)
     rng = np.random.default_rng(0)
     plens = rng.integers(32, 513, 16)
     prompts = [rng.integers(0, cfg.vocab, n).astype(np.int32) for n in plens]
@@ -587,7 +626,7 @@ def serve_full_width(arch, label):
                     for i, p in enumerate(prompts)]
 
     # warm-up on a throwaway engine (cuBLAS handles, allocator)
-    SplitDecodeEngine(cfg, params, cut_units=cut, **kw).submit_and_run(
+    SplitDecodeEngine(cfg, params, cut_units=cut, **SERVE_KW).submit_and_run(
         reqs()[:2])
 
     prefill_ms, step_ms = [], []
@@ -607,16 +646,17 @@ def serve_full_width(arch, label):
 
     split._prefill = timed(split._prefill, prefill_ms)
     split._step = timed(split._step, step_ms, step_launches)
-    counted = {**spec["per_prompt"], **spec["per_step"]}
-    for name in counted:
-        WRAPPERS[name].launches = 0
+    for w in WRAPPERS.values():
+        w.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     out = split.submit_and_run(reqs())
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {name: WRAPPERS[name].launches for name in counted}
-    want = {**{n: k * len(prefill_ms) for n, k in spec["per_prompt"].items()},
+    # every kernel's count: those the model does not run launched 0 times
+    launches = {name: w.launches for name, w in WRAPPERS.items()}
+    want = {**dict.fromkeys(WRAPPERS, 0),
+            **{n: k * len(prefill_ms) for n, k in spec["per_prompt"].items()},
             **{n: k * len(step_ms) for n, k in spec["per_step"].items()}}
     check(len(prefill_ms) == 16 and launches == want,
           f"launches {launches} != {want} ({len(prefill_ms)} prompts, "
@@ -629,7 +669,7 @@ def serve_full_width(arch, label):
     check(sorted(out) == list(range(16)), "every request served")
     check(all(len(t) == 32 and all(0 <= x < cfg.vocab for x in t)
               for t in out.values()), "32 in-vocabulary tokens per request")
-    unsplit = DecodeEngine(cfg, params, **kw).submit_and_run(reqs())
+    unsplit = DecodeEngine(cfg, params, **SERVE_KW).submit_and_run(reqs())
     check(unsplit == out, "split and unsplit greedy tokens differ")
 
     # one decode step's f32 logits: kernel path vs plain path, same state
@@ -720,7 +760,7 @@ def serve_full_width(arch, label):
     profile_decode(split, label)
     profile_calls(lambda: split._prefill(prompts[int(np.argmax(plens))]), 3,
                   f"prefills of {longest.shape[1]} tokens", label)
-    return launches
+    return launches, split, params
 
 
 def cuda_events(run, cpu=True, whole=None, retake=True):
@@ -1678,6 +1718,211 @@ def isl_smokes_10b(label):
           f"{time.perf_counter() - t1:.3f} s [{label}]")
 
 
+# Phase 11a's second half: the reference smoke's traffic (25,000
+# users/day, 90 s windows, prompts of 5 tokens, 4 new tokens each, 8
+# windows) served by the full-width split engine, whose rate prices the
+# serving fleet, and the serving fleet on the card at two sizes: the
+# reference smoke's (2 planes x 8 satellites, 24 windows of 90 s,
+# eclipses 6 / 0.5, TrainLoad(8, 12)) and a constellation's: 4 planes of
+# 256 satellites, 1,000 windows of the Table-I plane's pass duration,
+# TrafficConfig() (10^6 users/day, 16-token decodes), eclipses of 16
+# windows at duty 0.5 staggered by 4, and batteries whose 0.02 W recharge
+# cannot refill a satellite between its visits, so both gates bite.
+BIG_FLEET = dict(n_planes=4, n_sats=256, n_windows=1000, recharge_w=0.02,
+                 reserve_serve_j=50.0, reserve_train_j=250.0,
+                 eclipse=EclipseConfig(period=16, duty=0.5, stagger=4))
+BIG_TRAIN = TrainLoad(drain_j=120.0, e_total_j=200.0)
+
+
+def serve_fleet_parity(what, fleet, train, label):
+    """One run of a fresh serving fleet on the card under sync-debug
+    "error", held to the NumPy oracle (assert_host_parity) with one host
+    sync and one EV_SERVE per (plane, window); prints host ms a window,
+    the run's wall time, the oracle's time and how far the card's joules
+    lie from the oracle's."""
+    P, K = fleet.cfg.n_planes, fleet.cfg.n_windows
+    t0 = time.perf_counter()
+    with sync_budget(1, registry=fleet.metrics):
+        res = fleet.run()
+    wall = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    o = assert_host_parity(res, train)
+    oracle_s = time.perf_counter() - t1
+    ev = fleet.recorder.events()
+    n_serve = int((ev["kind"] == EV_SERVE).sum())
+    check(fleet.traces == 1 and fleet.host_syncs == 1
+          and n_serve == P * K and fleet.recorder.dropped == 0,
+          f"{what}: traces {fleet.traces}, syncs {fleet.host_syncs}, "
+          f"{n_serve} EV_SERVE of {P * K}")
+    err = max(float(np.abs(res.battery_j - o["battery_j"]).max()),
+              float(np.abs(res.energy.energy_spent_j
+                           - o["energy_spent_j"]).max()))
+    s = res.summary()
+    print(f"  serving fleet {what} on the card: {res.run_s * 1e3 / K:.4f} "
+          f"ms of host a window, run {res.run_s:.3f} s (wall with the "
+          f"inputs {wall:.3f} s), NumPy oracle {oracle_s:.3f} s; parity OK "
+          f"(routing and counts exact; joules max |card - oracle| "
+          f"{err:.3e}, bit for bit: {err == 0.0}), 1 host sync, {n_serve} "
+          f"EV_SERVE [{label}]")
+    print(f"    arrivals {s['arrived_requests']} served "
+          f"{s['served_requests']:.0f} backlog "
+          f"{s['final_backlog_requests']:.0f}, sustained "
+          f"{s['sustained_tokens_per_s']:.2f} tok/s, p99 "
+          f"{s['p99_latency_s']:.2f} s, trained {s['trained_passes']} "
+          f"skipped {s['skipped_passes']}, min battery "
+          f"{s['min_battery_j']:.2f} J")
+    return res
+
+
+def granite_serving_fleet_11a(label):
+    """Phase 11a: full-width Granite-3.0-2B split at unit 20 through B2
+    and B3 (phase 4's checks), the reference smoke's traffic on its split
+    engine (its first window with every kernel call held to its plain
+    version, every window's tokens to the unsplit engine's), the measured
+    rate as a ServeCost, and the serving fleet on the card at two sizes
+    against the NumPy oracle. Returns the kernels' launches on the served
+    runs."""
+    launches, split, params = serve_full_width("granite_3_2b", label)
+    cfg, cut = split.cfg, SERVED["granite_3_2b"]["cut"]
+    spec = SERVED["granite_3_2b"]
+
+    # the reference smoke's traffic, prompts from PassWindowTraffic
+    windows = PassWindowTraffic(SMOKE_TRAFFIC, window_s=90.0, n_planes=1)
+    arrivals = windows.realize(8)[0]
+    steps = [0]
+    step = split._step
+
+    def counted_step(*a):
+        steps[0] += 1
+        return step(*a)
+
+    split._step = counted_step
+    for w in WRAPPERS.values():
+        w.launches = 0
+    out, dt = serve_windows(split, windows, arrivals, cfg.vocab)
+    traffic = {n: w.launches for n, w in WRAPPERS.items()}
+    n_req, n_tok = len(out), sum(len(t) for t in out.values())
+    want = {**dict.fromkeys(WRAPPERS, 0),
+            "flash_attn_fwd": spec["per_prompt"]["flash_attn_fwd"] * n_req,
+            "decode_attn": spec["per_step"]["decode_attn"] * steps[0]}
+    check(n_req == int(arrivals.sum()) and
+          n_tok == n_req * SMOKE_TRAFFIC.decode_len and
+          all(0 <= x < cfg.vocab for t in out.values() for x in t),
+          f"traffic: {n_req} requests, {n_tok} tokens of "
+          f"{int(arrivals.sum())} arrivals")
+    check(traffic == want, f"traffic launches {traffic} != {want}")
+    rate = n_tok / dt
+    n_steps = steps[0]
+
+    # the traffic's shapes (5-token prefills, decode over 5-8 positions)
+    # held call by call: the first window again, each B2 and B3 call
+    # against its plain version on the same inputs, at phase 3's tolerance
+    steps[0] = 0
+    (out0, _), calls = with_checked_ops(lambda: serve_windows(
+        split, windows, arrivals[:1], cfg.vocab))
+    want_calls = {"flash_attention": spec["per_prompt"]["flash_attn_fwd"]
+                  * int(arrivals[0]),
+                  "decode_attention": spec["per_step"]["decode_attn"]
+                  * steps[0]}
+    check({n: c[0] for n, c in calls.items()} == want_calls,
+          f"checked traffic calls {calls} != {want_calls}")
+    check(out0 == {r: out[r] for r in out0},
+          "the first window's tokens differ between two runs")
+    # every window's tokens against the unsplit engine's
+    unsplit, _ = serve_windows(DecodeEngine(cfg, params, **SERVE_KW),
+                               windows, arrivals, cfg.vocab)
+    check(unsplit == out, "traffic: split and unsplit greedy tokens differ")
+
+    cost = serve_cost(cfg, params, cut, tokens_per_s=rate,
+                      act_bits=split.act_dtype.itemsize * 8)
+    check(cost.e_token_j > 0, f"serve cost {cost}")
+    print(f"  pass-window traffic: {n_req} requests ({arrivals.tolist()} "
+          f"over 8 windows of 90 s), {n_tok} tokens in {dt:.3f} s = "
+          f"{rate:.1f} tok/s on the split engine, {n_steps} decode steps; "
+          f"launches {traffic}; split tokens == unsplit [{label}]")
+    print(f"  window 0 again, every kernel call vs plain (calls, err, max "
+          f"|plain|): " + ", ".join(f"{n} {c}x ({e:.3e}, {t:.3e})"
+                                    for n, (c, e, t) in calls.items())
+          + f" [{label}]")
+    print(f"  ServeCost at {rate:.1f} tok/s: {cost.e_token_j:.6g} J a token "
+          f"on the satellite (units [0, {cut}), {cost.dtx_bits_token:.0f} "
+          f"boundary bits), a 90 s window serves "
+          f"{cost.window_capacity_requests(90.0, 4):.0f} requests of 4 "
+          f"tokens")
+    del split, params
+    torch.cuda.empty_cache()
+
+    serve_fleet_parity("2 x 8, 24 windows", serve_fleet_smoke_fleet(
+        cost, "cuda"), SMOKE_TRAIN, label)
+    fleet = FleetServeEngine(ServeFleetConfig(**BIG_FLEET), TrafficConfig(),
+                             cost, train=BIG_TRAIN, device="cuda")
+    res = serve_fleet_parity("4 x 256, 1,000 windows of "
+                             f"{fleet.cfg.pass_window_s:.2f} s", fleet,
+                             BIG_TRAIN, label)
+    check(res.summary()["trained_passes"] > 0
+          and res.summary()["skipped_passes"] > 0,
+          "the constellation fleet trained and skipped")
+    # the card's share of a chained run of 100 windows: its host time and
+    # its kernels' time from the same (kernel-only) trace
+    t0 = time.perf_counter()
+    fleet.run(100)
+    bare_ms = (time.perf_counter() - t0) * 1e3
+    host = []
+
+    def framed():
+        t = time.perf_counter()
+        fleet.run(100)                      # ends in its one host sync
+        host.append((time.perf_counter() - t) * 1e3)
+
+    kern = cuda_events(framed, cpu=False)
+    host_ms = host[-1]
+    busy = sum(getattr(e, "self_device_time_total", 0) for e in kern) / 1e3
+    n_kern = sum(e.count for e in kern)
+    check(0 < busy <= host_ms, f"serving fleet: kernels {busy:.3f} ms in a "
+          f"run of {host_ms:.3f} ms (host clock, same trace)")
+    print(f"  100 chained windows of the 4 x 256 fleet: {host_ms:.1f} ms "
+          f"(host clock, under the kernel-only profiler; {bare_ms:.1f} ms "
+          f"unprofiled), kernels {busy:.3f} ms ({n_kern} launches, "
+          f"{n_kern / 100:.0f} a window), device idle "
+          f"{1 - busy / host_ms:.1%} [{label}]")
+    return {n: launches[n] + traffic[n] for n in WRAPPERS}
+
+
+def serving_clis_11b(label):
+    """Phase 11b: ``python -m repro_torch.serve_fleet``, ``python -m
+    repro_torch.obs``, the reference's acceptance render ``python -m
+    repro_torch.obs render --planes 4 --sats 256 --scenario degraded
+    --serve`` and the paper's tables, on the card."""
+    t0 = time.perf_counter()
+    s = serve_fleet_main.main([])
+    check(s["trained_passes"] > 0, f"serve_fleet smoke: {s}")
+    t1 = time.perf_counter()
+    o = obs_main.main([])
+    check(o["serve_events"] == 48 and o["pass_events"] == 32,
+          f"obs smoke: {o}")
+    t2 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as td:
+        r = obs_main.main(["render", "--planes", "4", "--sats", "256",
+                           "--scenario", "degraded", "--serve",
+                           "--out", str(Path(td) / "trace.json")])
+    check(r["events"] >= 4 * 256 + 4 * 24, f"render: {r}")
+    t3 = time.perf_counter()
+    tables = paper_tables.run_all(device="cuda")
+    top, bot = tables["fig3_top"], tables["fig3_bottom"]
+    check(top["W_as_total(/400)"]["savings_pct"] > 90.0,
+          f"Fig. 3 savings {top['W_as_total(/400)']['savings_pct']}")
+    check(bot["l1"]["e_total"] > bot["l2"]["e_total"] > bot["l3"]["e_total"],
+          f"Fig. 3 bottom order {bot}")
+    print(f"  serve_fleet smoke {t1 - t0:.3f} s, obs smoke {t2 - t1:.3f} s, "
+          f"obs render 4 x 256 degraded + serve {t3 - t2:.3f} s "
+          f"({r['events']} events, {r['trace_events']} trace events), "
+          f"paper tables {time.perf_counter() - t3:.3f} s (Fig. 3: "
+          f"{top['W_as_total(/400)']['savings_pct']:.2f}% saved with W as "
+          f"a total; l1 {bot['l1']['e_total']:.4g} > l2 "
+          f"{bot['l2']['e_total']:.4g} > l3 {bot['l3']['e_total']:.4g} J "
+          f"on the float64 solver on the card) [{label}]")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1717,6 +1962,12 @@ def main() -> int:
             dtype, 512, gen, flush, H=MHA_H, KV=MHA_H))
         rows["decode_attn"].append(check_decode(dtype, gen, flush, H=MHA_H,
                                                 KV=MHA_H))
+    for dtype in (torch.bfloat16, torch.float32):     # Granite's GQA heads
+        for S in GRANITE_PREFILL_S:
+            rows["flash_attn_fwd"].append(check_prefill(
+                dtype, S, gen, flush, H=GRANITE_H, KV=GRANITE_KV))
+        rows["decode_attn"].append(check_decode(
+            dtype, gen, flush, H=GRANITE_H, KV=GRANITE_KV))
     for dtype in (torch.bfloat16, torch.float32):     # head dim 16 (smoke)
         rows["flash_attn_fwd"].append(check_prefill(
             dtype, 512, gen, flush, H=SMOKE_H, KV=SMOKE_H, D=SMOKE_D))
@@ -1789,7 +2040,7 @@ def main() -> int:
     del flush
     phase_done("phases 2-3 (build, kernels vs plain)")
 
-    paths = {"smollm_360m": serve_full_width("smollm_360m", smi)}
+    paths = {"smollm_360m": serve_full_width("smollm_360m", smi)[0]}
     torch.cuda.empty_cache()
     phase_done("phase 4 (SmolLM-360M)")
     ring_launches, numpy_gen_ms = train_full_width(smi)
@@ -1797,10 +2048,10 @@ def main() -> int:
     autoencoder_pass_224(smi)
     torch.cuda.empty_cache()
     phase_done("phase 5 (training ring)")
-    paths["zamba2_1_2b"] = serve_full_width("zamba2_1_2b", smi)
+    paths["zamba2_1_2b"] = serve_full_width("zamba2_1_2b", smi)[0]
     torch.cuda.empty_cache()
     phase_done("phase 6 (Zamba2-1.2B)")
-    paths["xlstm_1_3b"] = serve_full_width("xlstm_1_3b", smi)
+    paths["xlstm_1_3b"] = serve_full_width("xlstm_1_3b", smi)[0]
     torch.cuda.empty_cache()
     phase_done("phase 7 (xLSTM-1.3B)")
     paths["device_loop_resnet18"] = {
@@ -1823,6 +2074,11 @@ def main() -> int:
     phase_done("phase 10a")
     isl_smokes_10b(smi)
     phase_done("phase 10b")
+    paths["granite_3_2b"] = granite_serving_fleet_11a(smi)
+    torch.cuda.empty_cache()
+    phase_done("phase 11a (Granite-3.0-2B, the serving fleet)")
+    serving_clis_11b(smi)
+    phase_done("phase 11b")
     print(f"launches on the main paths (B1: counted by its wrapper at each "
           f"launch; the device loop is eager, no graph): {paths}")
     launches = {n: sum(p.get(n, 0) for p in paths.values()) for n in WRAPPERS}

@@ -52,6 +52,10 @@ reference's JAX backend has a tensor counterpart,
 :mod:`repro_torch.core.resource_opt_torch`: every batch entry point takes
 ``backend="numpy" | "torch" | "auto"`` and a ``device`` for the torch
 backend (the card unless the caller asks for the CPU). ``"jax"`` raises.
+The reference's scalar API is here too, in NumPy float64 as the
+reference computes it: :func:`solve_reference` (the pure-Python nested
+bisection, the oracle of :func:`solve_batch`), :func:`solve_with_shedding`,
+:func:`solve_pipelined` and :func:`best_split`.
 """
 from __future__ import annotations
 
@@ -226,6 +230,77 @@ class SolveReport:
     kkt_residual: float
     iterations: int
     phase_times: dict
+
+
+def solve_reference(budget: PassBudget, costs: SplitCosts,
+                    tol: float = 1e-10) -> SolveReport:
+    """Scalar reference solver (pure-Python nested bisection).
+
+    Kept as the oracle the vectorized :func:`solve_batch` is tested
+    against; the public :func:`solve` now routes through the batch path.
+    """
+    phases = _build_phases(budget, costs)
+    live = [p for p in phases if p is not None]
+    t_budget = budget.time_budget_s(costs)
+
+    t_min_sum = sum(p.t_min for p in live)
+    if not live:
+        alloc = allocation_from_times(budget, costs, 0.0, 0.0, 0.0, 0.0)
+        return SolveReport(alloc, 0.0, 0.0, 0, {})
+    if t_budget <= 0.0 or t_min_sum > t_budget:
+        # Infeasible: even at f_max / P_max the pass deadline cannot be met.
+        times = {p.name: p.t_min for p in live}
+        alloc = _alloc_from_phase_times(budget, costs, phases, times, feasible=False)
+        return SolveReport(alloc, math.inf, math.inf, 0, times)
+
+    t_hi = t_budget  # no phase can use more than the whole budget
+
+    def total_time(lam: float) -> float:
+        return sum(p.t_of_lambda(lam, t_hi) for p in live)
+
+    # Bracket λ: total_time is decreasing in λ.
+    lam_lo, lam_hi = 1e-20, 1.0
+    for _ in range(400):
+        if total_time(lam_hi) <= t_budget:
+            break
+        lam_hi *= 4.0
+    for _ in range(400):
+        if total_time(lam_lo) >= t_budget:
+            break
+        lam_lo /= 4.0
+
+    iters = 0
+    for iters in range(1, 300):
+        lam = math.sqrt(lam_lo * lam_hi)   # geometric mid: λ spans decades
+        if total_time(lam) > t_budget:
+            lam_lo = lam
+        else:
+            lam_hi = lam
+        if lam_hi / lam_lo < 1.0 + tol:
+            break
+    lam = math.sqrt(lam_lo * lam_hi)
+
+    times = {p.name: p.t_of_lambda(lam, t_hi) for p in live}
+    # Use any slack (from t_min-clamped phases) on the cheapest marginal —
+    # distribute residual to interior phases by a final λ refinement pass:
+    slack = t_budget - sum(times.values())
+    if slack > 1e-9 * t_budget:
+        interior = [p for p in live if times[p.name] > p.t_min * (1 + 1e-9)]
+        for p in interior:
+            times[p.name] += slack / max(len(interior), 1)
+
+    # KKT residual: max relative spread of marginals among interior phases.
+    interior_marginals = [p.neg_deriv(times[p.name]) for p in live
+                          if times[p.name] > p.t_min * (1 + 1e-6)
+                          and times[p.name] < t_hi * (1 - 1e-6)]
+    if len(interior_marginals) >= 2:
+        mmin, mmax = min(interior_marginals), max(interior_marginals)
+        kkt = (mmax - mmin) / max(mmax, _EPS)
+    else:
+        kkt = 0.0
+
+    alloc = _alloc_from_phase_times(budget, costs, phases, times, feasible=True)
+    return SolveReport(alloc, lam, kkt, iters, times)
 
 
 def _alloc_from_phase_times(budget, costs, phases, times, feasible):
@@ -701,6 +776,65 @@ def solve_with_shedding_batch(
     return BatchSheddingReport(rep, frac, n_kept)
 
 
+def solve_with_shedding(budget: PassBudget, costs: SplitCosts,
+                        min_fraction: float = 0.05,
+                        tol: float = 1e-4) -> SheddingReport:
+    """If (13) is infeasible, find the max batch fraction that fits.
+
+    t_min of every phase scales linearly with n_items, so feasibility is
+    monotone in the kept fraction — bisect on it.  This is the per-pass
+    deadline acting as straggler mitigation (DESIGN.md §2): a slow or
+    energy-poor satellite processes a prefix of its batch rather than
+    stalling the ring.  Thin wrapper over a 1-instance
+    :func:`solve_with_shedding_batch`.
+    """
+    return solve_with_shedding_batch(budget, costs, min_fraction=min_fraction,
+                                     tol=tol).at(0)
+
+
+def _feasible_at(budget: PassBudget, costs: SplitCosts, frac: float) -> bool:
+    b = dataclasses.replace(budget, n_items=budget.n_items * frac)
+    phases = [p for p in _build_phases(b, costs) if p is not None]
+    return sum(p.t_min for p in phases) <= b.time_budget_s(costs)
+
+
+# --------------------------------------------------------------------------
+# Microbatch-pipelined SL (beyond-paper): overlap sat-compute / links /
+# gs-compute across M microbatches (parallel split learning).
+# --------------------------------------------------------------------------
+
+def solve_pipelined(budget: PassBudget, costs: SplitCosts,
+                    n_microbatches: int = 8) -> SolveReport:
+    """With M microbatches in flight the four resources (sat CPU, downlink,
+    GS CPU, uplink) run concurrently; wall time ≈ (M+3)/M · max_i t_i
+    (pipeline fill/drain) instead of Σ_i t_i.  Each phase may therefore
+    stretch to T_eff = T_budget·M/(M+3) *independently*, and since every
+    E_i(t) is decreasing the optimum is simply t_i = max(t_i_min, T_eff)
+    — no waterfilling needed.  Energy drops ∝ (Σt→T each): the cubic CPU
+    law turns the extra time straight into f² savings, compounding with
+    the paper's optimizer (EXPERIMENTS.md §Perf beyond-paper row).
+    """
+    phases = [p for p in _build_phases(budget, costs) if p is not None]
+    t_budget = budget.time_budget_s(costs)
+    m = max(1, n_microbatches)
+    t_eff = t_budget * m / (m + 3.0)
+    if not phases:
+        alloc = allocation_from_times(budget, costs, 0, 0, 0, 0)
+        return SolveReport(alloc, 0.0, 0.0, 0, {})
+    if any(p.t_min > t_eff for p in phases) or t_eff <= 0:
+        times = {p.name: p.t_min for p in phases}
+        feas = max(p.t_min for p in phases) <= t_eff > 0
+        alloc = _alloc_from_phase_times(
+            budget, costs, _build_phases(budget, costs), times, feasible=feas)
+        return SolveReport(alloc, math.inf, math.inf, 0, times)
+    times = {p.name: t_eff for p in phases}
+    alloc = _alloc_from_phase_times(
+        budget, costs, _build_phases(budget, costs), times, feasible=True)
+    # NOTE: alloc.t_total sums phases (sequential accounting); the
+    # pipelined wall-clock is (m+3)/m * max(times) + fixed overhead.
+    return SolveReport(alloc, 0.0, 0.0, 1, times)
+
+
 # --------------------------------------------------------------------------
 # Split-point search (beyond-paper: the paper hand-picks ℓ).
 # --------------------------------------------------------------------------
@@ -731,3 +865,7 @@ def best_split_batch(budget: PassBudget,
     return cands[j], shed.at(j).report
 
 
+def best_split(budget: PassBudget,
+               candidates: Sequence[SplitCosts]) -> Tuple[SplitCosts, SolveReport]:
+    """Jointly pick the cut point ℓ and the resource allocation."""
+    return best_split_batch(budget, candidates)

@@ -94,14 +94,21 @@ def apply_serve(state: EnergyState, sat, drain_j,
                 capacity_j: float) -> EnergyState:
     """Charge serving drain ``drain_j`` to satellite ``sat``: subtracted
     from the battery training drains too, and recorded in
-    ``energy_spent_j``; the pass counters are untouched."""
+    ``energy_spent_j``; the pass counters are untouched.
+
+    As :func:`apply_pass`: the state's tensors are ``(N,)`` for one ring,
+    with ``sat`` and ``drain_j`` scalars or one-element tensors, or
+    ``(P, M)`` for P planes (the serving fleet), with ``(P,)`` tensors:
+    each plane's drain at its serving slot.
+    """
     dev = state.battery_j.device
-    idx = _col(sat, torch.long, (), dev)
-    d = _col(drain_j, torch.float32, (), dev)
+    lead = tuple(state.battery_j.shape[:-1])
+    idx = _col(sat, torch.long, lead, dev)
+    d = _col(drain_j, torch.float32, lead, dev)
     return state._replace(
-        battery_j=clamp_battery(state.battery_j.index_add(0, idx, -d),
+        battery_j=clamp_battery(state.battery_j.scatter_add(-1, idx, -d),
                                 capacity_j),
-        energy_spent_j=state.energy_spent_j.index_add(0, idx, d))
+        energy_spent_j=state.energy_spent_j.scatter_add(-1, idx, d))
 
 
 def apply_pass(state: EnergyState, sat, drain_j, e_total_j,

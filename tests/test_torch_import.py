@@ -43,7 +43,12 @@ def test_modules_and_chip_smoke_import_without_jax():
             "repro_torch.isl.link", "repro_torch.isl.codec",
             "repro_torch.isl.exchange", "repro_torch.isl.__main__",
             "repro_torch.obs.timeline",
-            "repro_torch.train.compression"} <= set(mods)
+            "repro_torch.train.compression",
+            "repro_torch.serve_fleet", "repro_torch.serve_fleet.router",
+            "repro_torch.serve_fleet.traffic",
+            "repro_torch.serve_fleet.__main__", "repro_torch.obs.__main__",
+            "repro_torch.launch.paper_tables",
+            "repro_torch.configs.granite_3_2b"} <= set(mods)
     code = ("import sys\n"
             "sys.modules['jax'] = None\n"
             "sys.modules['repro'] = None\n"
@@ -83,7 +88,10 @@ def _entry_points_refuse_cpu_unless_asked(monkeypatch):
     from repro_torch import configs
     from repro_torch.fleet import __main__ as fleet_main
     from repro_torch.isl import __main__ as isl_main
-    from repro_torch.launch import constellation, device_sim, serve
+    from repro_torch.launch import (constellation, device_sim, paper_tables,
+                                    serve)
+    from repro_torch.obs import __main__ as obs_main
+    from repro_torch.serve_fleet import __main__ as serve_fleet_main
     from repro_torch.sim import device_sim as sim_device_sim
     from repro_torch.models import lm
     from repro_torch.serve.engine import DecodeEngine
@@ -121,6 +129,16 @@ def _entry_points_refuse_cpu_unless_asked(monkeypatch):
         fleet_main.main(["--scenario", "degraded"])
     with pytest.raises(RuntimeError, match="cuda"):
         sim_device_sim._smoke(["--smoke"])
+    # the serving-fleet smoke, the recorder smoke and its render, and the
+    # paper's tables (each run with --device cpu in its own test file)
+    with pytest.raises(RuntimeError, match="cuda"):
+        serve_fleet_main.main([])
+    with pytest.raises(RuntimeError, match="cuda"):
+        obs_main.main([])
+    with pytest.raises(RuntimeError, match="cuda"):
+        obs_main.main(["render", "--out", "unused.json"])
+    with pytest.raises(RuntimeError, match="cuda"):
+        paper_tables.main([])
 
 
 def test_chip_smoke_fails_without_a_card():

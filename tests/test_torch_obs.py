@@ -3,7 +3,10 @@ reference's (``repro.obs``): the same sequence of ``record`` calls gives
 equal event tables (masked records are bit-for-bit no-ops, the cursor
 is monotonic, overwritten events are reported as dropped), and the
 metrics registry behaves the same (propagation, histograms,
-``counter_property``, ``sync_budget``)."""
+``counter_property``, ``sync_budget``). ``python -m repro_torch.obs``
+runs its smoke on the CPU at the reference's sizes, and its ``render``
+writes a trace that both packages' validators accept and both renderers
+draw alike."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -143,3 +146,47 @@ def test_counter_property():
     assert obs.global_registry().counter("e.traces").value == 2
     eng.traces = 0
     assert obs.global_registry().counter("e.traces").value == 0
+
+
+# ------------------------------------------- python -m repro_torch.obs (CLI)
+
+def test_obs_smoke_runs_on_cpu():
+    """The recorder smoke's four steps at the reference's sizes (2 planes
+    x 8 sats x 2 revolutions, the delegated 4-sat sim, 24 serving
+    windows, the merged render)."""
+    from _torch_helpers import one_torch_thread
+    from repro_torch.obs import __main__ as obs_main
+
+    with one_torch_thread():
+        out = obs_main.main(["--device", CPU])
+    assert out == {"pass_events": 32, "exchange_events": 4, "sim_events": 8,
+                   "serve_events": 48}
+
+
+def test_obs_render_cli_writes_a_valid_trace(tmp_path):
+    import json
+
+    from _torch_helpers import one_torch_thread
+    from repro.obs import timeline as jtimeline
+    from repro_torch.obs import __main__ as obs_main
+
+    out, npz = tmp_path / "trace.json", tmp_path / "events.npz"
+    with one_torch_thread():
+        res = obs_main.main(["render", "--planes", "2", "--sats", "4",
+                             "--scenario", "degraded", "--serve",
+                             "--windows", "6", "--device", CPU,
+                             "--out", str(out), "--events", str(npz)])
+    trace = json.loads(out.read_text())
+    obs.validate_chrome_trace(trace)
+    jtimeline.validate_chrome_trace(trace)
+    assert len(trace["traceEvents"]) == res["trace_events"]
+    ev = obs.FlightRecorder.load(str(npz)).events()
+    assert ev["kind"].size == res["events"]
+    assert (ev["kind"] == obs.EV_PASS).sum() == 2 * 4
+    assert (ev["kind"] == obs.EV_SERVE).sum() == 2 * 6
+    # the reference's renderer reads the port's table the same way (as
+    # JSON text: a skipped pass's loss is NaN)
+    assert json.dumps(jtimeline.to_chrome_trace(ev, window_s=90.0)) == \
+        json.dumps(obs.to_chrome_trace(ev, window_s=90.0))
+    with pytest.raises(SystemExit):
+        obs_main.main(["render", "--scenario", "nope"])

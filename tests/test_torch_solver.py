@@ -6,7 +6,11 @@ file's tolerances: phase times and energies rtol 1e-6 (atol 1e-12),
 feasibility equal, finite duals rtol 1e-4, e_total and t_total within
 1e-6 of the oracle, shed fractions within 2e-4 of the NumPy bisection.
 Also the backend selector, the revolution sweep against per-cell host
-solves, and the bisection's freezing of a converged instance. The
+solves, the bisection's freezing of a converged instance, and the
+reference's scalar API (``solve_reference``, ``solve_with_shedding``,
+``_feasible_at``, ``solve_pipelined``, ``best_split``) at rtol 1e-9 on
+Table II's cuts and the autoencoder (fixed inputs: no draws of tiny
+``w1_flops`` (ROADMAP C5), no SLSQP (C3)). The
 reference's own device solver does not run under this jax (ROADMAP C1)
 and is not called."""
 import dataclasses
@@ -271,3 +275,83 @@ def test_backend_from_the_environment(monkeypatch):
         resource_opt.solve_batch(b, c)
     monkeypatch.delenv("REPRO_SOLVER_BACKEND")
     assert resource_opt._resolve_backend(None, 1) == ("numpy", None)
+
+
+# ---------------------------------------------------------------- scalar API
+# The reference's scalar API (solve_reference, solve_with_shedding,
+# _feasible_at, solve_pipelined, best_split) on fixed inputs: Table II's
+# three ResNet-18 cuts and the autoencoder (the paper's W per image and as
+# a total, and the analytic plan's cut), at Table I's 400 items, at 5e4
+# items (the cuts shed to 0.37-0.48 of the batch), at 4e6 (nothing fits:
+# the shedding floor and best_split's fallback) and on an 8-satellite
+# plane.
+
+def _scalar_cases(E, O, Sp):
+    plan = Sp.resnet18_plan(img=224, n_classes=1000)
+    costs = {name: plan.costs_at(cut)
+             for name, cut in Sp.RESNET18_PAPER_CUTS.items()}
+    for label, scale in (("ae_per_image", 1.0), ("ae_total", 1.0 / 400.0)):
+        costs[label] = E.SplitCosts(302e9 * scale, 39e6 * scale, 4.7e3,
+                                    168.8e3, name="ae-sl")
+    costs["ae_plan"] = Sp.autoencoder_plan(img=224).costs_at(5)
+    budgets = {"table1": E.PassBudget(n_items=400.0),
+               "overfull": E.PassBudget(n_items=5e4),
+               "unservable": E.PassBudget(n_items=4e6),
+               "plane8": E.PassBudget(plane=O.OrbitalPlane(n_sats=8),
+                                      n_items=1000.0)}
+    return budgets, costs
+
+
+SCALAR_COSTS = ["l1", "l2", "l3", "ae_per_image", "ae_total", "ae_plan"]
+SCALAR_BUDGETS = ["table1", "overfull", "unservable", "plane8"]
+
+
+def _same_report(got, want, rel=1e-9):
+    for f in dataclasses.fields(want.allocation):
+        g, w = (getattr(got.allocation, f.name),
+                getattr(want.allocation, f.name))
+        if isinstance(w, bool):
+            assert g == w, f.name
+        else:
+            assert g == pytest.approx(w, rel=rel, abs=1e-300), f.name
+    assert got.iterations == want.iterations
+    for g, w in ((got.lam, want.lam), (got.kkt_residual, want.kkt_residual)):
+        assert g == w or g == pytest.approx(w, rel=rel, abs=1e-300)
+    assert set(got.phase_times) == set(want.phase_times)
+    for k, v in want.phase_times.items():
+        assert got.phase_times[k] == pytest.approx(v, rel=rel), k
+
+
+@pytest.mark.parametrize("bname", SCALAR_BUDGETS)
+@pytest.mark.parametrize("cname", SCALAR_COSTS)
+def test_scalar_api_matches_reference(bname, cname):
+    tb, tc = _scalar_cases(energy, orbits, splitting)
+    jb, jc = _scalar_cases(jenergy, jorbits, jsplit)
+    b, c, jbb, jcc = tb[bname], tc[cname], jb[bname], jc[cname]
+    _same_report(resource_opt.solve_reference(b, c),
+                 jro.solve_reference(jbb, jcc))
+    _same_report(resource_opt.solve_pipelined(b, c, n_microbatches=8),
+                 jro.solve_pipelined(jbb, jcc, n_microbatches=8))
+    _same_report(resource_opt.solve_pipelined(b, c, n_microbatches=1),
+                 jro.solve_pipelined(jbb, jcc, n_microbatches=1))
+    got, want = (resource_opt.solve_with_shedding(b, c),
+                 jro.solve_with_shedding(jbb, jcc))
+    assert got.kept_fraction == pytest.approx(want.kept_fraction, rel=1e-9)
+    assert got.n_items_kept == pytest.approx(want.n_items_kept, rel=1e-9)
+    _same_report(got.report, want.report)
+    for frac in (0.05, 0.5, 1.0):
+        assert resource_opt._feasible_at(b, c, frac) == \
+            jro._feasible_at(jbb, jcc, frac)
+
+
+@pytest.mark.parametrize("bname", SCALAR_BUDGETS)
+def test_best_split_matches_reference(bname):
+    tb, _ = _scalar_cases(energy, orbits, splitting)
+    jb, _ = _scalar_cases(jenergy, jorbits, jsplit)
+    for kw in ({}, {"img": 64, "n_classes": 10}):
+        cands = splitting.resnet18_plan(**kw).enumerate_cuts()
+        jcands = jsplit.resnet18_plan(**kw).enumerate_cuts()
+        ct, rt = resource_opt.best_split(tb[bname], cands)
+        cn, rn = jro.best_split(jb[bname], jcands)
+        assert ct.name == cn.name
+        _same_report(rt, rn)
