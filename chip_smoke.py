@@ -96,7 +96,24 @@ Phases, each fatal on failure:
      (b) ``python -m repro_torch.serve_fleet``, ``python -m
      repro_torch.obs``, ``python -m repro_torch.obs render --planes 4
      --sats 256 --scenario degraded --serve`` and the paper's tables
-     (Fig. 3's claims) with the float64 solver on the card.
+     (Fig. 3's claims) with the float64 solver on the card;
+ 12. LM training (repro_torch.train, repro_torch.launch.train,
+     sl_step.lm_adapter): (a) full-width SmolLM-360M through
+     ``launch.train`` (batch 8, seq 512, bf16, remat full, AdamW, 20
+     steps): finite, falling losses, exactly 64 flash-attention launches a
+     step (32 forward, 32 remat recompute) and none of the other kernels,
+     one f32 step's loss and gradients on the kernel path against the
+     plain path, steps/s, tokens/s and the card's share of a step; (b)
+     SmolLM-360M split at unit 16 through the constellation ring (batch
+     4, AdamW, int8 boundary, 4 passes): 2 quantizer and 32 attention
+     launches a SL step with no copy, the boundary's bits, one SL step
+     kernel path against plain path, SL steps/s; (c) one train step of
+     the Zamba2 and xLSTM smoke configs on the card, every projection
+     weight's gradient nonzero and equal to the CPU's.
+Phase 3 also holds B2's lse and its autograd Function at SmolLM's
+training shape (the plain backward timed beside SDPA's forward +
+backward), and the scans' Functions at full-width heads (gradients bit
+for bit the plain path's).
 Each phase prints its elapsed time. Every profile is framed by marker
 kernels (cuda_events), since torch.profiler can drop a trace's first
 kernels.
@@ -107,6 +124,7 @@ Exits non-zero without a CUDA device.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -130,7 +148,7 @@ from repro_torch.core.energy import PassBudget  # noqa: E402
 from repro_torch.core.orbits import OrbitalPlane  # noqa: E402
 from repro_torch.core.splitting import RESNET18_PAPER_CUTS  # noqa: E402
 from repro_torch.core.train_state import SLTrainState, _leaves  # noqa: E402
-from repro_torch.data.synthetic import ImageryShards  # noqa: E402
+from repro_torch.data.synthetic import ImageryShards, TokenShards  # noqa: E402
 from repro_torch.fleet import (ByzantineConfig, EclipseConfig,  # noqa: E402
                                EpidemicConfig, FleetConfig, FleetEngine,
                                ScenarioConfig, oracle_actions)
@@ -143,12 +161,14 @@ from repro_torch.isl import (CodecConfig, ContactConfig,  # noqa: E402
 from repro_torch.isl.__main__ import _smoke as isl_smoke  # noqa: E402
 from repro_torch.kernels import (_build, decode_attn, flash_attn,  # noqa: E402
                                  mamba_scan, mlstm_scan, ops, split_quant)
+from repro_torch.kernels.recompute import flat  # noqa: E402
 from repro_torch.models import lm  # noqa: E402
 from repro_torch.models.param import map_tree  # noqa: E402
 from repro_torch.obs.ring import EV_EXCHANGE, EV_SERVE  # noqa: E402
 from repro_torch.train.optimizer import resolve_optimizer  # noqa: E402
 from repro_torch.utils.bucketing import bucket_size  # noqa: E402
-from repro_torch.utils.treeutil import tree_leaves  # noqa: E402
+from repro_torch.utils.treeutil import (tree_flatten_with_names,  # noqa: E402
+                                       tree_leaves)
 from repro_torch.models.layers import Ctx  # noqa: E402
 from repro_torch.serve.engine import DecodeEngine, Request  # noqa: E402
 from repro_torch.serve_fleet import __main__ as serve_fleet_main  # noqa: E402
@@ -162,6 +182,10 @@ from repro_torch.serve_fleet.engine import (  # noqa: E402
 from repro_torch.serve_fleet.traffic import (PassWindowTraffic,  # noqa: E402
                                              TrafficConfig)
 from repro_torch.launch import paper_tables  # noqa: E402
+from repro_torch.launch import train as launch_train  # noqa: E402
+from repro_torch.train.optimizer import AdamWConfig, adamw_init  # noqa: E402
+from repro_torch.train.step import (TrainConfig, TrainState,  # noqa: E402
+                                    loss_and_grads, make_train_step)
 from repro_torch.obs import __main__ as obs_main  # noqa: E402
 from repro_torch.obs.metrics import sync_budget  # noqa: E402
 from repro_torch.sim import (ACTION_NAMES, ACTION_SHED,  # noqa: E402
@@ -197,6 +221,10 @@ QUANT_CM_SHAPES = [((8, 28, 28, 128), torch.float32),
                    ((8, 28, 28, 128), torch.bfloat16),
                    ((8, 7, 7, 3), torch.float32),
                    ((2, 1, 1, 3), torch.float32)]
+# SmolLM-360M's split-ring boundary (phase 12b): z and dz of batch 4 x
+# seq 512 at d 960, f32, row-major (B1's two launches a SL step; phase
+# 12b also holds the kernel against the plain version on its own z, dz).
+LM_BOUNDARY_SHAPES = [((4, 512, 960), torch.float32)]
 # The Mamba-2 scan at Zamba2-1.2B's full-width heads (H=64, P=N=64,
 # chunk 128): (B, S), S = 1 and ragged last chunks included.
 MAMBA_H, MAMBA_P, MAMBA_N, MAMBA_CHUNK = 64, 64, 64, 128
@@ -243,6 +271,26 @@ PREFILL_F32_TOL_OF_MAX = 1e-3
 # Marker kernels on each side of a profiled region (cuda_events): runs on
 # the H100 lost 1-4 of a trace's first kernels.
 PROFILE_EDGE = 4
+# Phase 3's training rows: B2 at SmolLM-360M's training shape (phase 12a:
+# batch 8, seq 512), its lse at the attention tolerance of its dtype and
+# the gradients of its autograd Function against the plain path's at the
+# reference's gradient tolerance (bf16: the attention tolerance, as the
+# outputs the backward starts from differ by an ulp); the scans'
+# Functions at Zamba2's and xLSTM's full-width heads, whose gradients
+# must equal the plain path's bit for bit (the backward is the plain
+# scan's, re-run on the same inputs).
+TRAIN_B, TRAIN_S = 8, 512
+GRAD_TOL = {torch.bfloat16: 2e-2, torch.float32: 5e-4}
+SCAN_GRAD_S = 512
+# Phase 12: full-width SmolLM-360M trained through ``launch.train`` (12a)
+# and split through the constellation ring (12b, the reference's
+# test_constellation_lm_adapter_adamw at full width), and one train step of
+# the Zamba2 and xLSTM smoke configs on the card against the CPU (12c).
+LM_TRAIN_STEPS = 20
+LM_B2_PER_STEP = 64                 # 32 layers, forward and remat recompute
+LM_RING_PASSES, LM_RING_STEPS, LM_RING_BATCH, LM_CUT = 4, 4, 4, 16
+LM_B2_PER_SL_STEP = 32              # 16 layers a segment, forward only
+LM_STEP_LOSS_RTOL = 1e-5
 
 
 def check(ok, what):
@@ -346,7 +394,8 @@ def quant_input(rows, d, dtype, gen):
 
 def quant_cases(gen):
     """(label, x) for phase 3: QUANT_SHAPES as row-major rows, then
-    QUANT_CM_SHAPES as channel-major rows (the NHWC view of NCHW memory)."""
+    QUANT_CM_SHAPES as channel-major rows (the NHWC view of NCHW memory),
+    then LM_BOUNDARY_SHAPES as row-major (B, S, d) tensors."""
     for rows, d, dtype in QUANT_SHAPES:
         yield (f"rows={rows} d={d} {str(dtype)[6:]} row-major",
                quant_input(rows, d, dtype, gen))
@@ -354,6 +403,10 @@ def quant_cases(gen):
         x = quant_input(N * H * W, C, dtype, gen).reshape(N, H, W, C)
         yield (f"{(N, H, W, C)} {str(dtype)[6:]} channel-major",
                x.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1))
+    for shape, dtype in LM_BOUNDARY_SHAPES:
+        yield (f"{shape} {str(dtype)[6:]} row-major",
+               quant_input(int(np.prod(shape[:-1])), shape[-1], dtype,
+                           gen).reshape(shape))
 
 
 def check_quant(label, x, fused, flush):
@@ -540,13 +593,6 @@ OP_OF = {"flash_attn_fwd": "flash_attention",
          "mamba_scan": "mamba_scan", "mlstm_scan": "mlstm_scan"}
 OP_TOL = {"flash_attention": TOL, "decode_attention": TOL,
           "mamba_scan": MAMBA_TOL, "mlstm_scan": MLSTM_TOL}
-
-
-def flat(out):
-    """The tensors of an op's output (a tensor or nested tuples), in order."""
-    if torch.is_tensor(out):
-        return [out]
-    return [t for o in out for t in flat(o)]
 
 
 def with_ops(make, fn):
@@ -1281,10 +1327,11 @@ def device_loop_full_width(label, numpy_gen_ms):
     return launches
 
 
-def boundary_bitwise(adapter, state, batch):
+def boundary_bitwise(adapter, state, batch, shapes=QUANT_CM_SHAPES):
     """z and dz of one SL step as the step hands them to the quantizer,
     each held bit for bit against the plain version by both entries, with
-    no copy. Run after the main path's count is read."""
+    no copy; each must be one of phase 3's ``shapes``. Run after the main
+    path's count is read."""
     with torch.no_grad():
         z = adapter.forward_a(state.params_a, batch)
     z_tx = ops.ste_quantize(z).requires_grad_()
@@ -1293,7 +1340,7 @@ def boundary_bitwise(adapter, state, batch):
                                   z_tx)
     parts = []
     for name, t in (("z", z), ("dz", dz)):
-        check((tuple(t.shape), t.dtype) in QUANT_CM_SHAPES,
+        check((tuple(t.shape), t.dtype) in shapes,
               f"{name} {tuple(t.shape)} {t.dtype} is not a phase-3 shape")
         for entry, plain in ((split_quant.quantize_dequantize,
                               split_quant.quantize_dequantize_plain),
@@ -1727,7 +1774,12 @@ def isl_smokes_10b(label):
 # 256 satellites, 1,000 windows of the Table-I plane's pass duration,
 # TrafficConfig() (10^6 users/day, 16-token decodes), eclipses of 16
 # windows at duty 0.5 staggered by 4, and batteries whose 0.02 W recharge
-# cannot refill a satellite between its visits, so both gates bite.
+# cannot refill a satellite between its visits, so both gates bite. The
+# constellation is priced at a fixed BIG_RATE, the measured rate's joules
+# a token: whether its batteries reach the reserve depends on the rate
+# (below about 39 tok/s no pass skips), and the measured rate follows the
+# host's speed (53.9 and 34.6 tok/s on two H100 machines).
+BIG_RATE = 60.0
 BIG_FLEET = dict(n_planes=4, n_sats=256, n_windows=1000, recharge_w=0.02,
                  reserve_serve_j=50.0, reserve_train_j=250.0,
                  eclipse=EclipseConfig(period=16, duty=0.5, stagger=4))
@@ -1855,9 +1907,11 @@ def granite_serving_fleet_11a(label):
     serve_fleet_parity("2 x 8, 24 windows", serve_fleet_smoke_fleet(
         cost, "cuda"), SMOKE_TRAIN, label)
     fleet = FleetServeEngine(ServeFleetConfig(**BIG_FLEET), TrafficConfig(),
-                             cost, train=BIG_TRAIN, device="cuda")
+                             dataclasses.replace(cost, tokens_per_s=BIG_RATE),
+                             train=BIG_TRAIN, device="cuda")
     res = serve_fleet_parity("4 x 256, 1,000 windows of "
-                             f"{fleet.cfg.pass_window_s:.2f} s", fleet,
+                             f"{fleet.cfg.pass_window_s:.2f} s at "
+                             f"{BIG_RATE:g} tok/s", fleet,
                              BIG_TRAIN, label)
     check(res.summary()["trained_passes"] > 0
           and res.summary()["skipped_passes"] > 0,
@@ -1923,6 +1977,359 @@ def serving_clis_11b(label):
           f"on the float64 solver on the card) [{label}]")
 
 
+def check_flash_train(dtype, gen, flush):
+    """B2 at SmolLM-360M's training shape: the kernel's lse against the
+    plain lse, its time with and without lse, the plain backward's time
+    beside SDPA's forward + backward, and the autograd Function's
+    gradients against the plain path's."""
+    dev = torch.device("cuda")
+    B, S = TRAIN_B, TRAIN_S
+    q, k, v, do = [torch.randn(s, generator=gen, device=dev).to(dtype)
+                   for s in ((B, H, S, D), (B, KV, S, D), (B, KV, S, D),
+                             (B, H, S, D))]
+    o, lse = flash_attn.flash_attention_fwd(q, k, v, lse=True)
+    po, plse = flash_attn.flash_attention_lse_plain(q, k, v)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(o.float(), po.float(), atol=TOL[dtype],
+                               rtol=TOL[dtype])
+    torch.testing.assert_close(lse, plse, atol=TOL[dtype], rtol=TOL[dtype])
+    lse_err = (lse - plse).abs().max().item()
+
+    def grads(fn):
+        ts = [t.detach().requires_grad_() for t in (q, k, v)]
+        return torch.autograd.grad(fn(*ts), ts, do)
+    got = grads(lambda *t: ops.flash_attention(*t))
+    want = grads(lambda *t: flash_attn.flash_attention_plain(*t))
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g.float(), w.float(), atol=GRAD_TOL[dtype],
+                                   rtol=GRAD_TOL[dtype])
+    grad_err = max((g.float() - w.float()).abs().max().item()
+                   for g, w in zip(got, want))
+
+    kx, vx = k.repeat_interleave(H // KV, 1), v.repeat_interleave(H // KV, 1)
+    sq, sk, sv = (t.detach().requires_grad_() for t in (q, kx, vx))
+
+    def sdpa_fwd_bwd():
+        out = F.scaled_dot_product_attention(sq, sk, sv, is_causal=True)
+        torch.autograd.grad(out, (sq, sk, sv), do)
+    pairs = S * (S + 1) // 2
+    elt = q.element_size()
+    b_ms, b_by = bound((2 * q.numel() + 2 * k.numel()) * elt
+                       + 4 * B * H * S, 4 * D * H * B * pairs, dtype)
+    # the backward reads q, k, v, o, dO and lse and writes dq, dk, dv;
+    # it recomputes S and takes dP, dV, dQ and dK: 10 D operations a pair
+    bb_ms, bb_by = bound((4 * q.numel() + 4 * k.numel()) * elt + 4 * B * H * S,
+                         10 * D * H * B * pairs, dtype)
+    return dict(
+        shape=f"train B={B} H={H} KV={KV} S={S} D={D} {str(dtype)[6:]}, "
+              f"with lse", max_abs_err=(o.float() - po.float()).abs().max()
+        .item(), lse_err=lse_err, grad_err=grad_err,
+        ms=time_ms(lambda: flash_attn.flash_attention_fwd(q, k, v, lse=True),
+                   flush=flush),
+        ms_no_lse=time_ms(lambda: flash_attn.flash_attention_fwd(q, k, v),
+                          flush=flush),
+        plain_ms=time_ms(lambda: flash_attn.flash_attention_plain(q, k, v),
+                         flush=flush),
+        library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+            q, kx, vx, is_causal=True), flush=flush),
+        bound_ms=b_ms, bound_by=b_by,
+        bwd_ms=time_ms(lambda: flash_attn.flash_attention_bwd_plain(
+            q, k, v, o, lse, do), flush=flush),
+        bwd_bound_ms=bb_ms, bwd_bound_by=bb_by,
+        sdpa_fwd_bwd_ms=time_ms(sdpa_fwd_bwd, flush=flush))
+
+
+def check_scan_grads(kind, dtype, gen):
+    """B4's or B5's autograd Function at the model's full-width heads:
+    the forward against the plain version (phase 3's tolerance, B5 at the
+    kernel's chunk) and every gradient against the plain path's (autograd
+    through the plain scan at the model's chunk) bit for bit, with the
+    time of one backward."""
+    dev = torch.device("cuda")
+    rnd = lambda *shape: torch.randn(shape, generator=gen, device=dev)
+    S = SCAN_GRAD_S
+    if kind == "mamba_scan":
+        Hm, P, N = MAMBA_H, MAMBA_P, MAMBA_N
+        inputs = (rnd(1, S, Hm, P).to(dtype), F.softplus(rnd(1, S, Hm)),
+                  rnd(Hm) * 0.5, rnd(1, S, N).to(dtype),
+                  rnd(1, S, N).to(dtype))
+        chunk, tol = MAMBA_CHUNK, MAMBA_TOL[dtype]
+        state_tol = tol
+        fwd_plain = lambda *a: mamba_scan.mamba_chunk_scan_plain(
+            *a, chunk=chunk)
+        op, plain_path = ops.mamba_scan, mamba_scan.mamba_chunk_scan_plain
+        shape = f"B=1 S={S} H={Hm} P={P} N={N} chunk {chunk}"
+    else:
+        Hx, P = MLSTM_H, MLSTM_P
+        inputs = tuple(rnd(1, S, Hx, P).to(dtype) for _ in range(3)) + (
+            rnd(1, S, Hx), rnd(1, S, Hx) + 1.0)
+        chunk, tol = MLSTM_CHUNK, MLSTM_TOL[dtype]
+        state_tol = MLSTM_STATE_TOL
+        fwd_plain = lambda *a: mlstm_scan.mlstm_chunk_scan_plain(
+            *a, chunk=min(chunk, mlstm_scan.L_MAX))
+        op, plain_path = ops.mlstm_scan, mlstm_scan.mlstm_chunk_scan_plain
+        shape = f"B=1 S={S} H={Hx} P={P} chunk {chunk} (kernel 64)"
+    cots = None
+
+    def grads(fn):
+        nonlocal cots
+        ts = [t.detach().requires_grad_() for t in inputs]
+        outs = flat(fn(*ts, chunk=chunk))
+        if cots is None:
+            cots = [torch.randn(o.shape, generator=gen, device=dev)
+                    .to(o.dtype) for o in outs]
+        return outs, torch.autograd.grad(outs, ts, cots)
+    n0 = WRAPPERS[kind].launches
+    outs, got = grads(op)
+    check(WRAPPERS[kind].launches == n0 + 1, f"{kind}: one launch a forward")
+    _, want = grads(plain_path)
+    for o, w in zip(outs, flat(fwd_plain(*inputs))):
+        t = tol if o.dtype == dtype else state_tol
+        torch.testing.assert_close(o.float(), w.float(), atol=t, rtol=t)
+    check(all(bool(torch.isfinite(g).all()) for g in got),
+          f"{kind} {dtype}: a gradient is not finite")
+    check(all(torch.equal(g, w) for g, w in zip(got, want)),
+          f"{kind} {dtype}: the Function's gradients are not the plain "
+          f"path's bit for bit")
+    ts = [t.detach().requires_grad_() for t in inputs]
+    outs = flat(op(*ts, chunk=chunk))
+    bwd_ms = time_ms(lambda: torch.autograd.grad(outs, ts, cots,
+                                                 retain_graph=True), iters=5)
+    return dict(kind=kind, shape=f"{shape} {str(dtype)[6:]}",
+                grads=len(got), bwd_ms=bwd_ms,
+                nonzero=all(bool((g != 0).any()) for g in got))
+
+
+def lm_train_12a(label):
+    """Phase 12a: full-width SmolLM-360M through ``launch.train`` (batch
+    8, seq 512, bf16, remat full, AdamW), exactly 64 B2 launches a step;
+    one f32 step's loss and gradients, kernel path against plain path;
+    steps/s and the card's share of a step from one trace."""
+    for fn in WRAPPERS.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    losses = launch_train.main([
+        "--steps", str(LM_TRAIN_STEPS), "--batch", str(TRAIN_B), "--seq",
+        str(TRAIN_S), "--remat", "full", "--lr", "3e-4", "--log-every", "5"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {n: fn.launches for n, fn in WRAPPERS.items()}
+    check(len(losses) == LM_TRAIN_STEPS and all(np.isfinite(losses)),
+          f"launch.train losses {losses}")
+    check(losses[-1] < losses[0], f"loss fell: {losses[0]} -> {losses[-1]}")
+    check(launches["flash_attn_fwd"] == LM_B2_PER_STEP * LM_TRAIN_STEPS
+          and all(launches[n] == 0 for n in launches if n != "flash_attn_fwd"),
+          f"launches {launches}: want {LM_B2_PER_STEP} B2 a step, no other")
+
+    cfg = configs.get("smollm_360m")
+    shards = TokenShards(vocab=cfg.vocab, seq_len=TRAIN_S, batch=TRAIN_B)
+    batch = {k: torch.as_tensor(v, device="cuda")
+             for k, v in shards.batch_at(0, 0).items()}
+    params = lm.init(cfg, torch.Generator(device="cuda").manual_seed(3))
+    f32 = TrainConfig(act_dtype=torch.float32, remat="full")
+    lk, _, gk = loss_and_grads(cfg, f32, params, batch)
+    lp, _, gp = with_plain_ops(lambda: loss_and_grads(cfg, f32, params, batch))
+    lk, lp = float(lk), float(lp)
+    check(abs(lk - lp) <= LM_STEP_LOSS_RTOL * abs(lp), ("12a f32 loss", lk, lp))
+    g_err = 0.0
+    for a, b in zip(tree_leaves(gk), tree_leaves(gp)):
+        torch.testing.assert_close(a, b, atol=5e-4, rtol=5e-4)
+        g_err = max(g_err, (a - b).abs().max().item())
+    del gk, gp
+
+    # steps/s and the card's share, on the CLI's configuration
+    tcfg = TrainConfig(adamw=AdamWConfig(lr=3e-4, warmup_steps=10,
+                                         total_steps=LM_TRAIN_STEPS))
+    step, _, _, init_state = make_train_step(cfg, tcfg=tcfg, device="cuda")
+    state = init_state(0)
+    state, _ = step(state, batch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        state, m = step(state, batch)
+        float(m["loss"])
+    step_ms = (time.perf_counter() - t0) / 3 * 1e3
+    host = []
+
+    def framed():
+        nonlocal state
+        t = time.perf_counter()
+        for _ in range(2):
+            state, m = step(state, batch)
+            float(m["loss"])
+        host.append((time.perf_counter() - t) * 1e3 / 2)
+    kern = cuda_events(framed, cpu=False)
+    busy = sum(getattr(e, "self_device_time_total", 0) for e in kern) / 2e3
+    check(0 < busy <= host[-1], f"12a: card {busy} ms in {host[-1]} ms")
+    tok = TRAIN_B * TRAIN_S
+    print(f"train smollm_360m (full width, {cfg.param_count() / 1e6:.1f}M "
+          f"params) batch {TRAIN_B} seq {TRAIN_S} bf16 remat full AdamW "
+          f"[{label}]")
+    print(f"  launch.train: {LM_TRAIN_STEPS} steps in {wall:.2f} s incl. "
+          f"init and the first step; losses {losses[0]:.4f} -> "
+          f"{losses[-1]:.4f}; launches {launches} "
+          f"({launches['flash_attn_fwd'] // LM_TRAIN_STEPS} B2 a step)")
+    print(f"  step: {step_ms:.2f} ms = {1e3 / step_ms:.3f} steps/s, "
+          f"{tok * 1e3 / step_ms:.0f} tokens/s (host clock, ends in a sync); "
+          f"traced: host {host[-1]:.2f} ms, card {busy:.2f} ms a step, "
+          f"device idle {1 - busy / host[-1]:.1%} (host and card from one "
+          f"kernel-only trace; against the unprofiled step "
+          f"{max(0.0, 1 - busy / step_ms):.1%}) [{label}]")
+    print(f"  one f32 step, kernel vs plain path: loss {lk:.7f} vs "
+          f"{lp:.7f}, gradients max abs diff {g_err:.3e}")
+    top = sorted(kern, key=lambda e: getattr(e, "self_device_time_total", 0),
+                 reverse=True)[:6]
+    for e in top:
+        print(f"    {getattr(e, 'self_device_time_total', 0) / 2e3:8.3f} ms "
+              f"a step {e.count / 2:6.1f}x  {e.key[:80]}")
+    return launches
+
+
+def lm_split_ring_12b(label):
+    """Phase 12b: full-width SmolLM-360M split at unit 16 through the
+    constellation ring (AdamW, int8 boundary): 2 B1 and 32 B2 launches a
+    SL step, no wrapper copy, the boundary payload, one SL step kernel
+    path against plain path, SL steps/s."""
+    cfg = configs.get("smollm_360m")
+    adapter = sl_step.lm_adapter(cfg, cut_units=LM_CUT, seq_len=TRAIN_S)
+    shards = TokenShards(vocab=cfg.vocab, seq_len=TRAIN_S,
+                         batch=LM_RING_BATCH, n_shards=25)
+    sim = ConstellationSim(
+        adapter, PassBudget(), shards.batch_at,
+        ConstellationConfig(n_passes=LM_RING_PASSES, optimizer="adamw",
+                            lr=3e-4, quantize_boundary=True,
+                            max_steps_per_pass=LM_RING_STEPS),
+        device="cuda")
+    for fn in WRAPPERS.values():
+        fn.launches = 0
+    split_quant.quantize_rows.launches = 0
+    split_quant.copies = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    records = sim.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {n: fn.launches for n, fn in WRAPPERS.items()}
+    steps = int(sim.state.step)
+    check(steps > 0 and all(r.loss is not None and np.isfinite(r.loss)
+                            for r in records if r.action != "skipped"),
+          f"12b: {[(r.action, r.loss) for r in records]}")
+    check(launches["split_quant"] == 2 * steps
+          and launches["flash_attn_fwd"] == LM_B2_PER_SL_STEP * steps
+          and launches["decode_attn"] == launches["mamba_scan"]
+          == launches["mlstm_scan"] == 0,
+          f"12b launches {launches} for {steps} SL steps")
+    check((split_quant.quantize_rows.launches, split_quant.copies) == (0, 0),
+          "12b: no quantize_rows launch and no wrapper copy")
+    batch = shards.batch_at(0, 0)
+    bits = sl_step.boundary_bits(adapter, batch, True)
+    check(bits == LM_RING_BATCH * TRAIN_S * cfg.d_model * 8,
+          f"boundary payload {bits} bits")
+    step = sl_step.make_sl_step(adapter, quantize_boundary=True)
+    pa, pb = sim.state.params_a, sim.state.params_b
+    rk = step(pa, pb, batch)
+    kernel_quant = split_quant.quantize_dequantize
+    split_quant.quantize_dequantize = split_quant.quantize_dequantize_plain
+    try:
+        rp = with_plain_ops(lambda: step(pa, pb, batch))
+    finally:
+        split_quant.quantize_dequantize = kernel_quant
+    lk, lp = float(rk.loss), float(rp.loss)
+    check(abs(lk - lp) <= LM_STEP_LOSS_RTOL * abs(lp), ("12b loss", lk, lp))
+    g_err = 0.0
+    for tk, tp in ((rk.grads_a, rp.grads_a), (rk.grads_b, rp.grads_b)):
+        for a, b in zip(tree_leaves(tk), tree_leaves(tp)):
+            torch.testing.assert_close(a, b, atol=5e-4, rtol=5e-4)
+            g_err = max(g_err, (a - b).abs().max().item())
+    parts = boundary_bitwise(
+        adapter, sim.state,
+        {k: torch.as_tensor(v, device="cuda") for k, v in batch.items()},
+        shapes=LM_BOUNDARY_SHAPES)
+    print(f"split ring smollm_360m cut at unit {LM_CUT}, batch "
+          f"{LM_RING_BATCH} seq {TRAIN_S} f32, AdamW, int8 boundary, "
+          f"{LM_RING_PASSES} passes [{label}]")
+    print(f"  actions {[r.action for r in records]}; losses "
+          f"{[round(r.loss, 4) for r in records if r.loss is not None]}")
+    print(f"  {steps} SL steps in {wall:.3f} s = {steps / wall:.3f} SL "
+          f"steps/s incl. planning; launches {launches}; boundary {bits} "
+          f"bits ({bits // (LM_RING_BATCH * TRAIN_S)} a token); one step "
+          f"kernel {lk:.7f} vs plain {lp:.7f}, gradients max abs diff "
+          f"{g_err:.3e} [{label}]")
+    print(f"  B1 bit for bit against the plain version, both entries, no "
+          f"copy, on the path's own boundary: {'; '.join(parts)}")
+    return launches
+
+
+def smoke_train_12c(label):
+    """Phase 12c: the Zamba2 and xLSTM smoke configs on the card (B4 / B5
+    and B2 with gradients), under full and selective (dots) remat: each
+    kernel launched twice a layer (the forward and the recompute), every
+    projection weight with a nonzero gradient, equal to the same loss and
+    gradient on the CPU; then one train step on the card."""
+    proj = ("wq", "wk", "wv", "wo", "wi", "w_in", "w_bc", "w_dt", "w_out",
+            "w_qkv", "w_if", "w_x", "w_h")
+    total = {n: 0 for n in WRAPPERS}
+    for arch in ("zamba2_1_2b", "xlstm_1_3b"):
+        cfg = configs.get_smoke(arch)
+        params = lm.init(cfg, torch.Generator().manual_seed(0))
+        toks = torch.randint(0, cfg.vocab, (2, 129), dtype=torch.int32,
+                             generator=torch.Generator().manual_seed(1))
+        batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+        on_card = map_tree(lambda t: t.to("cuda"), params)
+        card_batch = {k: v.cuda() for k, v in batch.items()}
+        want = "mamba_scan" if arch == "zamba2_1_2b" else "mlstm_scan"
+        for remat in ("full", "dots"):
+            tcfg = TrainConfig(act_dtype=torch.float32, remat=remat)
+            lp, _, gp = loss_and_grads(cfg, tcfg, params, batch)
+            for fn in WRAPPERS.values():
+                fn.launches = 0
+            with torch.no_grad():
+                lm.loss(cfg, on_card, card_batch["tokens"],
+                        card_batch["labels"],
+                        ctx=Ctx(cfg=cfg, act_dtype=torch.float32),
+                        remat="none")
+            once = {n: fn.launches for n, fn in WRAPPERS.items()}
+            lc, _, gc = loss_and_grads(cfg, tcfg, on_card, card_batch)
+            launches = {n: fn.launches - once[n] for n, fn in WRAPPERS.items()}
+            check(once[want] > 0 and once["decode_attn"] == 0
+                  and launches == {n: 2 * c for n, c in once.items()},
+                  f"12c {arch} remat {remat}: forward {once}, loss and "
+                  f"gradient {launches}: want twice the forward's")
+            check(abs(float(lc) - float(lp)) <= 1e-5 * abs(float(lp)),
+                  f"12c {arch} remat {remat} loss card {float(lc)} cpu "
+                  f"{float(lp)}")
+            cpu = dict(tree_flatten_with_names(gp))
+            n_proj, g_err = 0, 0.0
+            for name, g in tree_flatten_with_names(gc):
+                if name.rsplit(".", 1)[-1] in proj:
+                    check(bool((g != 0).any()), f"12c {arch}: {name} has no "
+                          "gradient on the card")
+                    n_proj += 1
+                torch.testing.assert_close(g.cpu(), cpu[name], atol=5e-4,
+                                           rtol=5e-4)
+                g_err = max(g_err, (g.cpu() - cpu[name]).abs().max().item())
+            print(f"  12c {arch} smoke, remat {remat}: loss card "
+                  f"{float(lc):.6f} cpu {float(lp):.6f}; {n_proj} projection "
+                  f"weights, all nonzero, max abs diff to the CPU "
+                  f"{g_err:.3e}; launches {launches} (forward only {once}) "
+                  f"[{label}]")
+            for n in total:
+                total[n] += launches[n]
+        for fn in WRAPPERS.values():
+            fn.launches = 0
+        step, _, _, _ = make_train_step(
+            cfg, tcfg=TrainConfig(act_dtype=torch.float32, remat="full"),
+            device="cuda")
+        state, metrics = step(TrainState(on_card, adamw_init(on_card), None),
+                              batch)
+        launches = {n: fn.launches for n, fn in WRAPPERS.items()}
+        check(np.isfinite(float(metrics["loss"])) and launches[want] > 0,
+              f"12c {arch} train_step: loss {metrics['loss']}, {launches}")
+        for n in total:
+            total[n] += launches[n]
+    return total
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1983,6 +2390,11 @@ def main() -> int:
     for dtype in (torch.bfloat16, torch.float32):
         for B, S in MLSTM_SHAPES:
             rows["mlstm_scan"].append(check_mlstm(dtype, B, S, gen, flush))
+    for dtype in (torch.bfloat16, torch.float32):     # SmolLM's training
+        rows["flash_attn_fwd"].append(check_flash_train(dtype, gen, flush))
+    grad_rows = [check_scan_grads(kind, dtype, gen)
+                 for kind in ("mamba_scan", "mlstm_scan")
+                 for dtype in (torch.bfloat16, torch.float32)]
     print(f"kernels vs plain on {smi} (ms, median of 20, L2 flushed; an "
           f"empty event pair {empty_ms:.4f}):")
     for name, rs in rows.items():
@@ -1998,6 +2410,15 @@ def main() -> int:
             if name == "decode_attn":
                 ratios += (f" splits {r['splits']} of {r['split_rows']} rows "
                            f"per (KV head, batch row)")
+            if "lse_err" in r:
+                ratios += (
+                    f"\n    without lse {r['ms_no_lse']:.4f} ms (lse "
+                    f"{r['ms'] / r['ms_no_lse'] - 1:+.1%}); lse max_abs_err "
+                    f"{r['lse_err']:.3e}; the Function's gradients vs the "
+                    f"plain path's {r['grad_err']:.3e}; plain backward "
+                    f"{r['bwd_ms']:.4f} ms (bound {r['bwd_bound_ms']:.4f}, "
+                    f"{r['bwd_bound_by']}), SDPA forward + backward "
+                    f"{r['sdpa_fwd_bwd_ms']:.4f} ms")
             print(f"  {name} {r['shape']}: kernel {r['ms']:.4f} plain "
                   f"{r['plain_ms']:.4f} library {lib} bound "
                   f"{r['bound_ms']:.4f} ({r['bound_by']}) max_abs_err "
@@ -2020,6 +2441,11 @@ def main() -> int:
                       f"kernel's chunk: {r['spread']:.3e}"
                       + (f"; device time by kernel (torch.profiler, 20 "
                          f"calls): {stages}" if stages else ""))
+    for r in grad_rows:
+        print(f"  {r['kind']} autograd Function {r['shape']}: {r['grads']} "
+              f"gradients bit for bit the plain path's (all nonzero: "
+              f"{r['nonzero']}), forward at phase 3's tolerance; backward "
+              f"(the plain scan's, recomputed) {r['bwd_ms']:.4f} ms")
     scan = rows["mamba_scan"][2]                      # S=512 bf16
     print(f"  mamba_scan bound at S=512 bf16: {scan['bytes'] / 1e6:.2f} MB "
           f"-> {scan['bytes'] / HBM_BYTES_PER_S * 1e3:.4f} ms at 3.35 TB/s; "
@@ -2079,6 +2505,14 @@ def main() -> int:
     phase_done("phase 11a (Granite-3.0-2B, the serving fleet)")
     serving_clis_11b(smi)
     phase_done("phase 11b")
+    paths["smollm_360m_train"] = lm_train_12a(smi)
+    torch.cuda.empty_cache()
+    phase_done("phase 12a (launch.train, SmolLM-360M)")
+    paths["smollm_360m_split_ring"] = lm_split_ring_12b(smi)
+    torch.cuda.empty_cache()
+    phase_done("phase 12b (the split ring, SmolLM-360M)")
+    paths["smoke_lm_train"] = smoke_train_12c(smi)
+    phase_done("phase 12c (Zamba2 and xLSTM smoke steps)")
     print(f"launches on the main paths (B1: counted by its wrapper at each "
           f"launch; the device loop is eager, no graph): {paths}")
     launches = {n: sum(p.get(n, 0) for p in paths.values()) for n in WRAPPERS}

@@ -4,8 +4,9 @@ Each ``<id>.py`` exposes ``CONFIG: ArchConfig`` with the published
 hyper-parameters, plus ``smoke_config()`` returning a reduced same-family
 config for CPU tests. ``get(name)`` / ``get_smoke(name)`` resolve either.
 The dataclass keeps every field of the reference, so the other configs
-copy over unchanged; of its helpers only those the serving path reads
-are kept.
+copy over unchanged, and its helpers, the parameter counts
+(``block_param_count``, ``param_count`` and their active variants,
+which ``core.splitting.lm_plan`` reads) with the same float arithmetic.
 
 Block kinds the port serves: ``attn`` (GQA attention + MLP), ``mamba2``
 (Mamba-2 SSD block, no separate MLP), ``shared_attn`` (Zamba2's one
@@ -77,6 +78,78 @@ class ArchConfig:
     @property
     def n_units(self) -> int:
         return self.n_layers // len(self.pattern_unit())
+
+    # ------------------------------------------------------- param accounting
+    def block_param_count(self, kind: str) -> float:
+        d, dh = self.d_model, self.head_dim
+        if kind in ("attn", "shared_attn"):
+            attn = d * (self.n_heads + 2 * self.n_kv_heads) * dh + self.n_heads * dh * d
+            n_mm = 3 if self.mlp_kind == "swiglu" else 2
+            ffn = n_mm * d * self.d_ff if self.d_ff else 0
+            return attn + ffn + 2 * d
+        if kind == "moe":
+            attn = d * (self.n_heads + 2 * self.n_kv_heads) * dh + self.n_heads * dh * d
+            ffn = self.n_experts * 3 * d * self.d_ff + d * self.n_experts
+            return attn + ffn + 2 * d
+        if kind == "mamba2":
+            di, n = self.d_inner, self.ssm_state or 64
+            return (d * 2 * di + di * 4            # in_proj + conv1d(k=4)
+                    + di * (2 * n)                 # B, C proj
+                    + di                           # dt proj (per-channel)
+                    + di * d + 2 * d)              # out_proj + norms
+        if kind == "mlstm":
+            di = self.d_inner
+            return d * 3 * di + 3 * di + di * d + 2 * d
+        if kind == "slstm":
+            return 2 * d * 4 * d + 4 * d + 2 * d
+        raise ValueError(kind)
+
+    def block_active_param_count(self, kind: str) -> float:
+        if kind == "moe":
+            d = self.d_model
+            dh = self.head_dim
+            attn = d * (self.n_heads + 2 * self.n_kv_heads) * dh + self.n_heads * dh * d
+            ffn = self.top_k * 3 * d * self.d_ff + d * self.n_experts
+            return attn + ffn + 2 * d
+        return self.block_param_count(kind)
+
+    def param_count(self) -> float:
+        kinds = self.block_kinds()
+        shared_done = False
+        total = 0.0
+        for k in kinds:
+            if k == "shared_attn":
+                if shared_done:
+                    continue
+                shared_done = True
+            total += self.block_param_count(k)
+        total += self.vocab * self.d_model * (1 if self.tie_embeddings else 2)
+        if self.enc_dec:
+            enc = self.n_enc_layers * self.block_param_count("attn")
+            cross = self.n_layers * (2 * self.d_model * self.n_heads * self.head_dim
+                                     + 2 * self.d_model)
+            total += enc + cross
+        total += self.d_model  # final norm
+        return total
+
+    def active_param_count(self) -> float:
+        kinds = self.block_kinds()
+        shared_done = False
+        total = 0.0
+        for k in kinds:
+            if k == "shared_attn":
+                if shared_done:
+                    continue
+                shared_done = True
+            total += self.block_active_param_count(k)
+        total += self.vocab * self.d_model * (1 if self.tie_embeddings else 2)
+        if self.enc_dec:
+            total += self.n_enc_layers * self.block_param_count("attn")
+            total += self.n_layers * (2 * self.d_model * self.n_heads * self.head_dim
+                                      + 2 * self.d_model)
+        total += self.d_model
+        return total
+
 
 
 def get(name: str) -> ArchConfig:

@@ -34,7 +34,7 @@ until the caller reads them.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, Sequence, Tuple
+from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -59,10 +59,15 @@ class SplitAdapter:
     loss_b: Callable[[Any, torch.Tensor, Dict], torch.Tensor]
     plan: SplitPlan
     cut_index: int
+    # (generator) -> (params_a, params_b), for a model whose segments share
+    # initial weights; None draws both from the merged specs
+    init_fn: Optional[Callable[[torch.Generator], Tuple[Any, Any]]] = None
 
     def init(self, generator: torch.Generator) -> Tuple[Any, Any]:
         """(params_a, params_b) drawn from ``generator`` (on its device),
-        leaves in the sorted order of the whole tree."""
+        leaves in the sorted order of the whole tree (or by ``init_fn``)."""
+        if self.init_fn is not None:
+            return self.init_fn(generator)
         spec_a, spec_b = self.specs
         p = init_params({**spec_a, **spec_b}, generator)
         return ({k: p[k] for k in spec_a}, {k: p[k] for k in spec_b})
@@ -308,7 +313,7 @@ def make_sl_pass(adapter: SplitAdapter, *, quantize_boundary: bool = False,
 
 
 # --------------------------------------------------------------------------
-# Adapters for the paper's models.
+# Adapters for the paper's models and the LM track.
 # --------------------------------------------------------------------------
 
 def _split_specs(spec: Dict, names: Sequence[str], cut: int):
@@ -362,3 +367,68 @@ def resnet18_adapter(cut: int = 5, img: int = 64,
         _split_specs(vision.resnet18_abstract_params(n_classes), names, cut),
         fa, lb, plan=resnet18_plan(img=img, n_classes=n_classes),
         cut_index=cut)
+
+
+def lm_adapter(cfg, cut_units: int, seq_len: int) -> SplitAdapter:
+    """LM split at a pattern-unit boundary: embed + units[:u] on the
+    satellite, units[u:] + final norm + head on the ground, activations
+    in f32. With tied embeddings the ground holds the head as its own
+    leaf ``head_tied``, initialised to the embedding; Zamba2's shared
+    block goes to both segments. As in the reference, both copies start
+    equal and then train apart; here each is its own buffer from init
+    (the optimizers update in place)."""
+    from repro_torch.core.splitting import lm_plan
+    from repro_torch.models import lm
+    from repro_torch.models.layers import Ctx
+
+    pat_len = len(cfg.pattern_unit())
+    cut_blocks = cut_units * pat_len
+    ctx = Ctx(cfg=cfg, act_dtype=torch.float32)
+
+    spec = lm.abstract_params(cfg)
+    units = lambda n: map_tree(lambda sp: dataclasses.replace(
+        sp, shape=(n,) + sp.shape[1:]), spec["units"])
+    spec_a = {"embed": spec["embed"], "units": units(cut_units)}
+    spec_b = {"units": units(cfg.n_units - cut_units),
+              "final_norm": spec["final_norm"]}
+    if "head" in spec:
+        spec_b["head"] = spec["head"]
+    else:
+        spec_b["head_tied"] = spec["embed"]
+    if "shared" in spec:
+        spec_a["shared"] = spec["shared"]
+        spec_b["shared"] = spec["shared"]
+
+    def _init(generator):
+        p = lm.init(cfg, generator)
+        pa = {"embed": p["embed"],
+              "units": map_tree(lambda t: t[:cut_units].clone(), p["units"])}
+        pb = {"units": map_tree(lambda t: t[cut_units:].clone(), p["units"]),
+              "final_norm": p["final_norm"]}
+        if "head" in p:
+            pb["head"] = p["head"]
+        else:
+            pb["head_tied"] = p["embed"].clone()
+        if "shared" in p:
+            pa["shared"] = p["shared"]
+            pb["shared"] = map_tree(torch.clone, p["shared"])
+        return pa, pb
+
+    def fa(pa, batch):
+        return lm.forward_segment(cfg, pa, None, 0, cut_blocks, ctx=ctx,
+                                  tokens=batch["tokens"])
+
+    def lb(pb, z, batch):
+        pfull = {k: v for k, v in pb.items() if k != "head_tied"}
+        if "head_tied" in pb:
+            pfull["embed"] = pb["head_tied"]
+        logits = lm.forward_segment(cfg, pfull, z, cut_blocks,
+                                    lm.n_blocks(cfg), ctx=ctx,
+                                    unit_offset=cut_units)
+        lse = torch.logsumexp(logits, dim=-1)
+        ll = logits.gather(-1, batch["labels"].long()[..., None])[..., 0]
+        return torch.mean(lse - ll)
+
+    return SplitAdapter(cfg.name, (spec_a, spec_b), fa, lb,
+                        plan=lm_plan(cfg, seq_len), cut_index=cut_blocks,
+                        init_fn=_init)

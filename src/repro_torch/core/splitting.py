@@ -13,8 +13,11 @@ the satellite").  The four cost terms of a cut:
 The paper treats gradient and activation payloads as equal-sized, which
 eq. (11) encodes by charging D_tx twice — see energy.py.
 
-The port's copy of ``repro/core/splitting.py`` for the paper's two
-vision models; the LM plans come with LM training.
+``lm_plan`` builds the LayerCost list of an LM architecture from its
+config (analytic FLOPs, utils/flops.py), keeping the embedding with
+segment A and the head with segment B (neither is cuttable — the
+satellite owns the data/tokenizer side, the ground owns the loss side,
+as in Fig. 2). The port's copy of ``repro/core/splitting.py``.
 """
 from __future__ import annotations
 
@@ -24,6 +27,8 @@ from typing import List, Sequence
 from repro_torch.core.energy import SplitCosts
 from repro_torch.utils.flops import (LayerCost, TRAIN_MULT,
                                      autoencoder_layer_costs,
+                                     lm_block_fwd_flops,
+                                     lm_embed_head_fwd_flops,
                                      resnet18_layer_costs)
 
 
@@ -94,3 +99,42 @@ def resnet18_plan(**kw) -> SplitPlan:
 
 # Cut indices matching the paper's Table II l1/l2/l3 (after stage1/2/3):
 RESNET18_PAPER_CUTS = {"l1": 3, "l2": 5, "l3": 7}
+
+
+# --------------------------------------------------------------------------
+# Assigned LM architectures (works off repro_torch.configs ArchConfig objects).
+# --------------------------------------------------------------------------
+
+def lm_plan(cfg, seq_len: int, act_bits: int = 32,
+            param_bits: int = 32) -> SplitPlan:
+    """Build a SplitPlan for an LM ArchConfig at a given sequence length.
+
+    One LayerCost per block; the boundary between any two blocks is the
+    residual stream (seq · d_model · act_bits).  The token embedding
+    stays on the satellite side (it ships over the ISL with segment A);
+    the LM head + loss stay on the ground.
+    """
+    layers: List[LayerCost] = []
+    boundary_bits = float(seq_len) * cfg.d_model * act_bits
+    for i, kind in enumerate(cfg.block_kinds()):
+        f = lm_block_fwd_flops(
+            d_model=cfg.d_model, n_heads=cfg.n_heads,
+            n_kv_heads=cfg.n_kv_heads, d_ff=cfg.d_ff, seq=seq_len,
+            block_kind=kind, n_experts=cfg.n_experts, top_k=cfg.top_k,
+            d_head=cfg.d_head, ssm_state=cfg.ssm_state,
+            causal=cfg.causal, window=cfg.window, mlp_kind=cfg.mlp_kind)
+        pcount = cfg.block_param_count(kind)
+        active = cfg.block_active_param_count(kind)
+        layers.append(LayerCost(
+            name=f"{kind}{i}", fwd_flops=f,
+            param_bytes=pcount * param_bits / 8.0,
+            out_bits=boundary_bits,
+            param_count=pcount, active_param_count=active))
+    embed_params = cfg.vocab * cfg.d_model
+    head_flops = lm_embed_head_fwd_flops(cfg.d_model, cfg.vocab, seq_len)
+    return SplitPlan(
+        name=cfg.name, layers=layers,
+        sat_fixed_fwd_flops=0.0,
+        gs_fixed_fwd_flops=head_flops,
+        sat_fixed_param_bytes=embed_params * param_bits / 8.0,
+    )

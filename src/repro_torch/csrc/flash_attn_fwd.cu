@@ -9,6 +9,11 @@
 // tail masked. Softmax and sums in f32, m starting at -1e30, masked
 // scores giving p = 0 without taking their exp, the row sum divided as
 // acc / max(l, 1e-30), output in the input type. D = 16, 32 or 64.
+// Optionally (a non-null lse) each row's log-sum-exp, f32 (B,H,Sq), in
+// natural-log units: lse = m + log(max(l, 1e-30)), as the reference's
+// _chunked_attention_fwd_impl returns it for the backward; a row with no
+// key in its band keeps m = -1e30. The backward is plain PyTorch
+// (repro_torch/kernels/flash_attn.py), as the reference's is jnp.
 //
 // What bounds it on the H100: the causal score and PV products,
 // 2 * 2 * B*H * (Sq*Skv/2) * D operations, against 989 TFLOP/s of bf16
@@ -63,8 +68,8 @@ template <typename T, int D>
 __global__ void __launch_bounds__(THREADS)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ o,
-                 int H, int KV, int Sq, int Skv, int causal, int window,
-                 float scale) {
+                 float* __restrict__ lse, int H, int KV, int Sq, int Skv,
+                 int causal, int window, float scale) {
   using V16 = repro::Vec16<T>;
   constexpr int VEC = V16::N;
   constexpr int DJ = D / 4;            // output columns per thread
@@ -189,6 +194,9 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int i = 0; i < DJ; ++i)
       op[(size_t)qpos * D + c4 + 4 * i] = repro::from_f32<T>(acc[i] / denom);
+    // m and l are the row's (reduced over its four lanes): one lane writes
+    if (lse != nullptr && c4 == 0)
+      lse[((size_t)b * H + h) * Sq + qpos] = m + logf(denom);
   }
 }
 
@@ -206,9 +214,9 @@ constexpr int mma_smem(int D) { return (BQ + 2 * NSLOT * BK) * (D + 8) * 2; }
 template <int D>
 __global__ void __launch_bounds__(MMA_THREADS, 2)
 flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                     const bf16* __restrict__ v, bf16* __restrict__ o, int H,
-                     int KV, int Sq, int Skv, int causal, int window,
-                     float scale_log2) {
+                     const bf16* __restrict__ v, bf16* __restrict__ o,
+                     float* __restrict__ lse, int H, int KV, int Sq, int Skv,
+                     int causal, int window, float scale_log2) {
   constexpr int DP = D + 8;        // shared row in bf16, padded by 16 bytes
   constexpr int KS = D / 16;       // k-steps of Q K^T
   constexpr int NT = BK / 8;       // key n-tiles of a score tile
@@ -435,6 +443,18 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                       x[(4 + 4 * jj + e) * 128] * fo[e >> 1];
   }
   const float d0 = fmaxf(l[0], 1e-30f), d1 = fmaxf(l[1], 1e-30f);
+  // the merged rows' log-sum-exp, back from log2 units (the scale is in
+  // m already) to natural log; a row with no key keeps m = -1e30
+  if (lse != nullptr && c4 == 0) {
+    constexpr float LN2 = 0.6931471805599453f;
+    float* lp = lse + ((size_t)b * H + h) * Sq;
+    if (r0 < Sq)
+      lp[r0] = m[0] <= repro::kNegBig ? repro::kNegBig
+                                      : m[0] * LN2 + logf(d0);
+    if (r1 < Sq)
+      lp[r1] = m[1] <= repro::kNegBig ? repro::kNegBig
+                                      : m[1] * LN2 + logf(d1);
+  }
 #pragma unroll
   for (int jj = 0; jj < DT; ++jj) {
     const int col = jj * 8 + 2 * c4;
@@ -449,32 +469,34 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
 template <int D>
 void launch_mma(const void* q, const void* k, const void* v, void* o,
-                const dim3& grid, int H, int KV, int Sq, int Skv, int causal,
-                int window, float scale, cudaStream_t st) {
+                float* lse, const dim3& grid, int H, int KV, int Sq, int Skv,
+                int causal, int window, float scale, cudaStream_t st) {
   const float log2e = 1.4426950408889634f;
   cudaFuncSetAttribute(flash_fwd_mma_kernel<D>,
                        cudaFuncAttributeMaxDynamicSharedMemorySize,
                        mma_smem(D));
   flash_fwd_mma_kernel<D><<<grid, MMA_THREADS, mma_smem(D), st>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o, H, KV, Sq,
-      Skv, causal, window, scale * log2e);
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o, lse, H, KV,
+      Sq, Skv, causal, window, scale * log2e);
 }
 
 template <int D>
 void launch_fma(const void* q, const void* k, const void* v, void* o,
-                const dim3& grid, int H, int KV, int Sq, int Skv, int causal,
-                int window, float scale, cudaStream_t st) {
+                float* lse, const dim3& grid, int H, int KV, int Sq, int Skv,
+                int causal, int window, float scale, cudaStream_t st) {
   flash_fwd_kernel<float, D><<<grid, THREADS, 0, st>>>(
-      (const float*)q, (const float*)k, (const float*)v, (float*)o, H, KV,
-      Sq, Skv, causal, window, scale);
+      (const float*)q, (const float*)k, (const float*)v, (float*)o, lse, H,
+      KV, Sq, Skv, causal, window, scale);
 }
 
 }  // namespace
 
 // Returns the CUDA error of the launch (0 = launched). window <= 0 means
-// no sliding window; dtype 0 = float32, 1 = bfloat16.
+// no sliding window; dtype 0 = float32, 1 = bfloat16; lse (f32, B*H*Sq)
+// may be null (not written).
 extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v,
-                              void* o, int B, int H, int KV, int Sq, int Skv,
+                              void* o, void* lse, int B, int H, int KV,
+                              int Sq, int Skv,
                               int D, int causal, int window, float scale,
                               int dtype, void* stream) {
   if (D != 16 && D != 32 && D != 64) return (int)cudaErrorInvalidValue;
@@ -483,6 +505,7 @@ extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v,
   auto go = dtype == 1
       ? (D == 16 ? launch_mma<16> : D == 32 ? launch_mma<32> : launch_mma<64>)
       : (D == 16 ? launch_fma<16> : D == 32 ? launch_fma<32> : launch_fma<64>);
-  go(q, k, v, o, grid, H, KV, Sq, Skv, causal, window, scale, st);
+  go(q, k, v, o, static_cast<float*>(lse), grid, H, KV, Sq, Skv, causal,
+     window, scale, st);
   return (int)cudaGetLastError();
 }

@@ -27,7 +27,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 P, I, L, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 # C signature of each source's entry point (all return a cudaError_t).
 ENTRY = {
-    "flash_attn_fwd": [P, P, P, P, I, I, I, I, I, I, I, I, F, I, P],
+    "flash_attn_fwd": [P, P, P, P, P, I, I, I, I, I, I, I, I, F, I, P],
     "decode_attn": [P, P, P, P, P, P, I, I, I, I, I, I, F, I, P],
     "split_quant": [P, P, P, P, I, I, I, L, L, L, I, I, P],
     "mamba_scan": [P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, P],

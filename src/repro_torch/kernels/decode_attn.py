@@ -68,7 +68,13 @@ def decode_attention_plain(q, k, v, lengths):
 
 def decode_attention(q, k, v, lengths):
     """q: (B, H, 1, D); k, v: (B, KV, S, D); lengths: (B,) valid rows per
-    batch row, all on one CUDA device. Returns (B, H, 1, D) in q's dtype."""
+    batch row, all on one CUDA device. Returns (B, H, 1, D) in q's dtype.
+    Decode is never differentiated (nor in the reference): under grad mode
+    an input that requires grad raises, rather than an output without a
+    graph."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise RuntimeError("decode_attention has no gradient: call it under "
+                           "torch.no_grad() or on inputs without grad")
     B, H, _, D = q.shape
     KV, S = k.shape[1], k.shape[2]
     dev = q.device

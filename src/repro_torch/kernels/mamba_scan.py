@@ -26,6 +26,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.recompute import recompute_grads
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 L_MAX = 128               # longest chunk the kernel's thread mapping covers
@@ -43,8 +44,10 @@ def scratch_words(B, S, H, P, N, L):
 
 def mamba_chunk_scan_plain(x, dt, a_log, b, c, *, chunk: int = 128):
     """The plain version, chunk by chunk in f32: the reference's jnp path
-    (``repro/kernels/ops.py::_mamba_chunked_jnp``). Returns (y in x's
-    dtype (B, S, H, P), h_final f32 (B, H, P, N))."""
+    (``repro/kernels/ops.py::_mamba_chunked_jnp``), with the same values;
+    its gradient is finite where the reference's is NaN (the decay's
+    exponent is masked above the diagonal). Returns (y in x's dtype (B,
+    S, H, P), h_final f32 (B, H, P, N))."""
     B, S, H, P = x.shape
     N = b.shape[-1]
     h = torch.zeros((B, H, P, N), dtype=torch.float32, device=x.device)
@@ -63,11 +66,15 @@ def mamba_chunk_scan_plain(x, dt, a_log, b, c, *, chunk: int = 128):
     for i in range(n):
         xc, dtc, bc, cc = xf[:, i], dtf[:, i], bf[:, i], cf[:, i]
         cum = torch.cumsum(dtc * a, dim=1)                          # (B,L,H)
-        decay = torch.exp(cum[:, :, None, :] - cum[:, None, :, :])  # (B,L,L,H)
+        # the exponent is masked too, not only the product: above the
+        # diagonal exp(cum_t - cum_s) overflows to inf, and the backward
+        # of the select would multiply that inf by a zero gradient (NaN;
+        # the reference's jnp scan has that fault). Values are unchanged.
+        band = tri[None, :, :, None]
+        decay = torch.exp(torch.where(band, cum[:, :, None, :]
+                                      - cum[:, None, :, :], -torch.inf))
         scores = torch.einsum("btn,bsn->bts", cc, bc)
-        # select, not multiply: decay is inf above the diagonal
-        m = torch.where(tri[None, :, :, None],
-                        decay * scores[..., None] * dtc[:, None], 0.0)
+        m = torch.where(band, decay * scores[..., None] * dtc[:, None], 0.0)
         y = torch.einsum("btsh,bshp->bthp", m, xc)
         y = y + torch.exp(cum)[..., None] * torch.einsum("btn,bhpn->bthp",
                                                          cc, h)
@@ -129,3 +136,31 @@ def mamba_chunk_scan(x, dt, a_log, b, c, *, chunk: int = 128):
 
 
 mamba_chunk_scan.launches = 0
+
+
+class MambaScan(torch.autograd.Function):
+    """The scan with a gradient: the forward is ``forward_fn`` (the kernel
+    on the card; a test passes :func:`mamba_chunk_scan_plain`) and saves
+    only its inputs; the backward re-runs the plain scan at the same
+    chunk (:func:`recompute_grads`), so its gradients of y and of the
+    final state are the plain path's bit for bit."""
+
+    @staticmethod
+    def forward(ctx, x, dt, a_log, b, c, chunk, forward_fn):
+        ctx.save_for_backward(x, dt, a_log, b, c)
+        ctx.chunk = chunk
+        return forward_fn(x, dt, a_log, b, c, chunk=chunk)
+
+    @staticmethod
+    def backward(ctx, gy, gh):
+        grads = recompute_grads(mamba_chunk_scan_plain, ctx.saved_tensors,
+                                ctx.needs_input_grad[:5], (gy, gh),
+                                chunk=ctx.chunk)
+        return grads + (None, None)
+
+
+def mamba_scan_grad(x, dt, a_log, b, c, *, chunk: int = 128,
+                    forward_fn=mamba_chunk_scan):
+    """Differentiable scan: :class:`MambaScan` over the kernel (or over
+    ``forward_fn``). Returns (y, h_final) as the kernel does."""
+    return MambaScan.apply(x, dt, a_log, b, c, chunk, forward_fn)

@@ -27,6 +27,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.recompute import recompute_grads
 
 NEG_INF = -1e30
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -157,3 +158,42 @@ def mlstm_chunk_scan(q, k, v, i_pre, f_pre, *, chunk: int = 256):
 
 
 mlstm_chunk_scan.launches = 0
+
+
+def _scan_ops_layout(q, k, v, i_pre, f_pre, *, chunk, forward_fn):
+    """``forward_fn``'s result as four tensors (h, C, n (B, H, P), m)."""
+    h, (C, n, m) = forward_fn(q, k, v, i_pre, f_pre, chunk=chunk)
+    return h, C, n.reshape(C.shape[:3]), m
+
+
+class MLSTMScan(torch.autograd.Function):
+    """The scan with a gradient: the forward is ``forward_fn`` (the kernel
+    on the card, its chunk ``min(chunk, S, 64)``; a test passes
+    :func:`mlstm_chunk_scan_plain`) and saves only its inputs; the
+    backward re-runs the plain scan at ``chunk``, so its gradients of h
+    and of the final (C, n, m) are the plain path's at that chunk bit for
+    bit. Outputs (h, C, n (B, H, P), m)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, i_pre, f_pre, chunk, forward_fn):
+        ctx.save_for_backward(q, k, v, i_pre, f_pre)
+        ctx.chunk = chunk
+        return _scan_ops_layout(q, k, v, i_pre, f_pre, chunk=chunk,
+                                forward_fn=forward_fn)
+
+    @staticmethod
+    def backward(ctx, gh, gC, gn, gm):
+        grads = recompute_grads(
+            _scan_ops_layout, ctx.saved_tensors, ctx.needs_input_grad[:5],
+            (gh, gC, gn, gm), chunk=ctx.chunk,
+            forward_fn=mlstm_chunk_scan_plain)
+        return grads + (None, None)
+
+
+def mlstm_scan_grad(q, k, v, i_pre, f_pre, *, chunk: int = 256,
+                    forward_fn=mlstm_chunk_scan):
+    """Differentiable scan: :class:`MLSTMScan` over the kernel (or over
+    ``forward_fn``). Returns (h, (C, n (B, H, P), m)), the layout of
+    :func:`repro_torch.kernels.ops.mlstm_scan`."""
+    h, C, n, m = MLSTMScan.apply(q, k, v, i_pre, f_pre, chunk, forward_fn)
+    return h, (C, n, m)

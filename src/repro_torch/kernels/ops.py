@@ -2,6 +2,16 @@
 tensor launches the hand-written kernel (or the wrapper raises), a CPU
 tensor takes the kernel's plain PyTorch version. There is no fallback
 from one to the other.
+
+On the card the scans (B4, B5) always go through their autograd
+Functions (the kernel forward, the plain scan's gradient by recompute;
+without grad the Function launches the same kernel and adds nothing).
+Attention (B2) takes its Function (the kernel forward with its lse, the
+plain backward) only when an input requires grad under grad mode, since
+the lse write costs time; otherwise the kernel runs without lse. Decode
+attention (B3) raises under grad. The plain CPU versions are differentiable as
+they are. A meta tensor (shape-only metering, ``sl_step.boundary_bits``)
+takes the plain version too: nothing is computed.
 """
 from __future__ import annotations
 
@@ -19,12 +29,23 @@ from repro_torch.kernels import ref
 from repro_torch.kernels import split_quant as _quant
 
 
+def _plain(t) -> bool:
+    return t.device.type in ("cpu", "meta")
+
+
+def _needs_grad(*ts) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
+
+
 def flash_attention(q, k, v, *, causal: bool = True,
                     window: Optional[int] = None):
     """q: (B,H,Sq,D); k,v: (B,KV,Skv,D) -> (B,H,Sq,D)."""
-    if q.device.type == "cpu":
+    if _plain(q):
         return _flash.flash_attention_plain(q, k, v, causal=causal,
                                             window=window)
+    if _needs_grad(q, k, v):
+        return _flash.flash_attention_grad(q, k, v, causal=causal,
+                                           window=window)
     return _flash.flash_attention_fwd(q, k, v, causal=causal, window=window)
 
 
@@ -38,9 +59,9 @@ def decode_attention(q, k, v, lengths):
 def mamba_scan(x, dt, a_log, b, c, *, chunk: int = 128):
     """Mamba-2 SSD chunked scan. x: (B,S,H,P); dt: (B,S,H); a_log: (H,);
     b, c: (B,S,N) -> (y (B,S,H,P), h_final (B,H,P,N) f32)."""
-    if x.device.type == "cpu":
+    if _plain(x):
         return _mamba.mamba_chunk_scan_plain(x, dt, a_log, b, c, chunk=chunk)
-    return _mamba.mamba_chunk_scan(x, dt, a_log, b, c, chunk=chunk)
+    return _mamba.mamba_scan_grad(x, dt, a_log, b, c, chunk=chunk)
 
 
 def mamba_decode_step(h, x_t, dt_t, a_log, b_t, c_t):
@@ -59,11 +80,10 @@ def mamba_decode_step(h, x_t, dt_t, a_log, b_t, c_t):
 def mlstm_scan(q, k, v, i_pre, f_pre, *, chunk: int = 256):
     """xLSTM mLSTM chunkwise scan. q, k, v: (B,S,H,P); i_pre, f_pre:
     (B,S,H) f32 -> (h (B,S,H,P), (C (B,H,P,P), n (B,H,P), m (B,H)) f32)."""
-    if q.device.type == "cpu":
+    if _plain(q):
         return _mlstm.mlstm_chunk_scan_plain(q, k, v, i_pre, f_pre,
                                              chunk=chunk)
-    h, (C, n, m) = _mlstm.mlstm_chunk_scan(q, k, v, i_pre, f_pre, chunk=chunk)
-    return h, (C, n[..., 0], m)
+    return _mlstm.mlstm_scan_grad(q, k, v, i_pre, f_pre, chunk=chunk)
 
 
 def mlstm_decode_step(state, q_t, k_t, v_t, i_t, f_t):

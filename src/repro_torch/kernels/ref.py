@@ -11,15 +11,35 @@ from typing import Optional
 import torch
 
 
+NEG_INF = -1e30           # lse of a row that sees no key
+
+
+def band_mask(Sq: int, Skv: int, *, q0: int = 0, k0: int = 0,
+              causal: bool = True, window: Optional[int] = None,
+              device=None):
+    """(Sq, Skv) bool: key k0 + j is in the band of query q0 + i."""
+    qpos = torch.arange(q0, q0 + Sq, device=device)[:, None]
+    kpos = torch.arange(k0, k0 + Skv, device=device)[None, :]
+    mask = torch.ones((Sq, Skv), dtype=torch.bool, device=device)
+    if causal:
+        mask = mask & (kpos <= qpos)
+    if window is not None:
+        mask = mask & (kpos > qpos - window)
+    return mask
+
+
 def attention(q, k, v, *, causal: bool = True,
               window: Optional[int] = None,
               kv_len: Optional[torch.Tensor] = None,
-              q_offset: int = 0):
+              q_offset: int = 0, return_lse: bool = False):
     """Naive softmax attention with GQA.
 
     q: (B, H, Sq, D); k, v: (B, KV, Skv, D) with H % KV == 0.
     ``q_offset``: absolute position of q[0]. ``kv_len``: (B,) valid cache
-    lengths; None = all valid. Rows with no valid key give 0.
+    lengths; None = all valid. Rows with no valid key give 0. With
+    ``return_lse`` also each row's log-sum-exp of the scaled scores, f32
+    (B, H, Sq): m + log(max(l, 1e-30)), with m = -1e30 for a row with no
+    valid key (the flash kernel's lse).
     """
     B, H, Sq, D = q.shape
     KV, Skv = k.shape[1], k.shape[2]
@@ -30,18 +50,19 @@ def attention(q, k, v, *, causal: bool = True,
     s = torch.einsum("bhqd,bhkd->bhqk", qf, kf) / math.sqrt(D)
 
     dev = q.device
-    qpos = torch.arange(Sq, device=dev)[:, None] + q_offset      # (Sq, 1)
-    kpos = torch.arange(Skv, device=dev)[None, :]
-    mask = torch.ones((1, Sq, Skv), dtype=torch.bool, device=dev)
-    if causal:
-        mask = mask & (kpos <= qpos)
-    if window is not None:
-        mask = mask & (kpos > qpos - window)
+    mask = band_mask(Sq, Skv, q0=q_offset, causal=causal, window=window,
+                     device=dev)[None]
     if kv_len is not None:
+        kpos = torch.arange(Skv, device=dev)[None, :]
         mask = mask & (kpos < kv_len.reshape(-1, 1, 1).to(dev))
     s = s.masked_fill(~mask[:, None], float("-inf"))
     p = torch.softmax(s, dim=-1).nan_to_num(nan=0.0)             # empty rows
-    return torch.einsum("bhqk,bhkd->bhqd", p, vf).to(q.dtype)
+    o = torch.einsum("bhqk,bhkd->bhqd", p, vf).to(q.dtype)
+    if not return_lse:
+        return o
+    m = s.amax(dim=-1).clamp(min=NEG_INF)
+    l = torch.exp(s - m[..., None]).sum(dim=-1)
+    return o, m + torch.log(torch.clamp(l, min=1e-30))
 
 
 def decode_attention(q, k, v, lengths):

@@ -30,6 +30,9 @@ def main(argv=None):
     ap.add_argument("--prefill", choices=("bulk", "loop"), default="bulk",
                     help="prompt ingestion: one prefill forward + cache "
                     "splice (bulk) or the token-by-token loop")
+    ap.add_argument("--use-pallas", action="store_true",
+                    help="the reference's TPU-kernel switch: accepted and "
+                    "ignored (the card always takes the Hopper kernels)")
     ap.add_argument("--cut", type=int, default=None,
                     help="serve the SPLIT model cut at this unit boundary "
                     "(satellite half + boundary downlink + ground half), in "

@@ -21,13 +21,32 @@ from repro_torch.models.param import ParamSpec
 
 @dataclasses.dataclass(frozen=True)
 class Ctx:
-    """Per-call context threaded through blocks."""
+    """Per-call context threaded through blocks, with every field of the
+    reference's ``Ctx`` and its defaults. ``mamba_chunk`` and
+    ``mlstm_chunk`` set the scans' chunks (the mLSTM kernel takes at most
+    64 of it; the scans are exact for any chunk). Accepted and ignored:
+    ``use_pallas``, ``block_q`` and ``block_k`` (TPU kernel choices: the
+    card always takes the Hopper kernels, the CPU their plain versions);
+    ``mesh`` and ``rules`` (sharding is not ported: one card);
+    ``attn_compute_dtype`` (the port's attention math is f32 already);
+    ``enc_out`` and ``moe_dispatch`` (cross-attention and MoE are not
+    ported yet)."""
 
     cfg: Any
+    mesh: Any = None
+    rules: Any = None
     mode: str = "train"                        # train | prefill | decode
     positions: Optional[torch.Tensor] = None   # (B,) decode positions
     rope: Optional[Tuple] = None               # precomputed (cos, sin)
+    enc_out: Optional[torch.Tensor] = None
     act_dtype: torch.dtype = torch.bfloat16
+    use_pallas: Optional[bool] = False
+    block_q: int = 512
+    block_k: int = 512
+    mamba_chunk: int = 128
+    mlstm_chunk: int = 256
+    attn_compute_dtype: Any = torch.float32
+    moe_dispatch: str = "global"               # global | batch_local
 
 
 # --------------------------------------------------------------------------
@@ -152,9 +171,6 @@ def apply_mlp(p, x, ctx: Ctx):
 # Mamba-2 block.
 # --------------------------------------------------------------------------
 
-MAMBA_CHUNK = 128                # the SSD scan's chunk (the reference's)
-
-
 def spec_mamba2(cfg) -> Dict:
     d = cfg.d_model
     di, H, _, N = mamba_dims(cfg)
@@ -211,7 +227,7 @@ def apply_mamba2(p, x, ctx: Ctx, cache=None):
         new_cache = cache
     else:
         y, h_final = ops.mamba_scan(xh, dtv, p["a_log"], bmat, cmat,
-                                    chunk=MAMBA_CHUNK)
+                                    chunk=ctx.mamba_chunk)
         new_cache = None
         if ctx.mode == "prefill":
             tail = F.pad(xs, (0, 0, 3, 0))[:, S:S + 3]
@@ -224,9 +240,6 @@ def apply_mamba2(p, x, ctx: Ctx, cache=None):
 # --------------------------------------------------------------------------
 # xLSTM blocks.
 # --------------------------------------------------------------------------
-
-MLSTM_CHUNK = 256                # the mLSTM scan's chunk (Ctx.mlstm_chunk)
-
 
 def spec_mlstm(cfg) -> Dict:
     d, di, H = cfg.d_model, cfg.d_inner, cfg.n_heads
@@ -261,7 +274,8 @@ def apply_mlstm(p, x, ctx: Ctx, cache=None):
         h = h[:, None]
         new_cache = cache
     else:
-        h, state = ops.mlstm_scan(q, k, v, i_pre, f_pre, chunk=MLSTM_CHUNK)
+        h, state = ops.mlstm_scan(q, k, v, i_pre, f_pre,
+                                  chunk=ctx.mlstm_chunk)
         new_cache = state if ctx.mode == "prefill" else None
     return h.reshape(B, S, di) @ p["w_out"].to(dt_), new_cache
 

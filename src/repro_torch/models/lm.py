@@ -1,7 +1,7 @@
-"""The LM for serving: embedding -> stacked pattern units -> norm -> tied
-or untied head. The port of ``repro/models/lm.py`` for the block kinds
-``attn``, ``mamba2``, ``shared_attn``, ``mlstm`` and ``slstm`` (dense
-models, Zamba2 and xLSTM).
+"""The LM: embedding -> stacked pattern units -> norm -> tied or untied
+head. The port of ``repro/models/lm.py`` for the block kinds ``attn``,
+``mamba2``, ``shared_attn``, ``mlstm`` and ``slstm`` (dense models,
+Zamba2 and xLSTM).
 
 Parameters are nested dicts of tensors in the reference's tree layout:
 ``units`` holds one entry per non-shared block of the pattern unit,
@@ -19,19 +19,32 @@ tuples as in the reference for xLSTM: ``{"mlstm": (C, n, m)}`` and
 ``{"slstm": (c, n, h, m)}``, all f32, with the stabilizer m at -1e30
 before the first token.
 
+Training: ``forward(remat=)`` recomputes each pattern unit in the
+backward (``"full"``: ``torch.utils.checkpoint``, non-reentrant) or
+keeps only its matmul outputs (``"dots"``: a selective checkpoint
+policy, the counterpart of ``jax.checkpoint_policies.checkpoint_dots``);
+the three modes give the same gradients. Remat applies only when a
+parameter requires grad under grad mode. The reference's ``unroll`` (its
+``lax.scan`` unrolling) is accepted and ignored.
+
 Entry points:
   init / abstract_params            parameter trees
   forward                           logits for train/prefill (+ caches)
+  loss                              next-token CE (+ the MoE aux term, 0)
   init_cache / cache_from_prefill   decode caches
   decode_step                       one token vs the caches
   split_serve_params / decode_step_split   the same, cut at a unit
+  n_blocks / forward_segment        SL split execution of blocks [lo, hi)
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Dict
 
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.models import layers as L
 from repro_torch.models.param import ParamSpec, init_params, map_tree
@@ -51,6 +64,14 @@ def _check_served(cfg):
         raise NotImplementedError(
             f"{cfg.name}: the port serves block kinds {SERVED_KINDS} without "
             f"enc-dec or M-RoPE (pattern {unit})")
+
+
+def _check_frontend(frontend_embed, enc_frames):
+    """The vision and audio front ends belong to the architectures
+    :func:`_check_served` refuses; given anyway, they raise."""
+    if frontend_embed is not None or enc_frames is not None:
+        raise NotImplementedError("frontend_embed / enc_frames: the vision "
+                                  "and audio front ends are not ported")
 
 
 # --------------------------------------------------------------------------
@@ -166,21 +187,55 @@ def _rope_for(cfg, seq: int, device, positions=None):
     return L.rope_tables(positions, cfg.head_dim, cfg.rope_theta)
 
 
-def forward(cfg, params, tokens, *, ctx: L.Ctx):
+REMAT = ("none", "full", "dots")
+# The matmuls whose outputs remat="dots" keeps (einsums lower to them).
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+         torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat_unit(remat: str, fn, *args):
+    """``fn(*args)`` with its activations recomputed in the backward:
+    all of them (``"full"``) or all but the matmul outputs (``"dots"``)."""
+    kw = {}
+    if remat == "dots":
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _save_dots)
+    return checkpoint(fn, *args, use_reentrant=False, **kw)
+
+
+def _trains(params) -> bool:
+    return torch.is_grad_enabled() and any(
+        t.requires_grad for t in tree_leaves(params))
+
+
+def forward(cfg, params, tokens, *, ctx: L.Ctx, frontend_embed=None,
+            enc_frames=None, remat: str = "full", unroll: int = 1):
     """Full-sequence logits. mode = train (no cache) or prefill.
 
     Returns (logits fp32, aux_loss (0: no MoE), caches_or_None) with the
     caches stacked along a leading unit axis (module docstring).
+    ``remat`` (none | full | dots) sets what the backward recomputes;
+    ``unroll`` is accepted and ignored.
     """
     _check_served(cfg)
+    _check_frontend(frontend_embed, enc_frames)
+    if remat not in REMAT:
+        raise ValueError(f"remat must be one of {REMAT}, got {remat!r}")
     B, S = tokens.shape
     x = _embed_tokens(params, tokens, ctx.act_dtype)
     ctx = dataclasses.replace(ctx, rope=_rope_for(cfg, S, tokens.device))
     shared = params.get("shared")
+    remat = remat if _trains(params) else "none"
     per_unit = []
     for u in range(_n_units(params)):
-        x, caches = _apply_unit(cfg, _unit(params["units"], u), shared, x,
-                                ctx, None)
+        args = (cfg, _unit(params["units"], u), shared, x, ctx, None)
+        x, caches = (_apply_unit(*args) if remat == "none"
+                     else _remat_unit(remat, _apply_unit, *args))
         per_unit.append(caches)
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
     logits = _head(cfg, params, x)
@@ -195,6 +250,26 @@ def _head(cfg, params, x):
     greedy ties."""
     w = params["embed"].T if cfg.tie_embeddings else params["head"]
     return x.float() @ w.to(x.dtype).float()
+
+
+def loss(cfg, params, tokens, labels, *, ctx: L.Ctx, frontend_embed=None,
+         enc_frames=None, remat: str = "full", aux_weight: float = 0.01,
+         unroll: int = 1):
+    """Next-token CE (labels = targets aligned to positions; -1 = pad).
+    Returns (ce + aux_weight * aux, {"ce", "aux", "ntok"})."""
+    logits, aux, _ = forward(cfg, params, tokens, ctx=ctx,
+                             frontend_embed=frontend_embed,
+                             enc_frames=enc_frames, remat=remat,
+                             unroll=unroll)
+    mask = labels >= 0
+    labels_c = labels.clamp(min=0).long()
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = logits.gather(-1, labels_c[..., None])[..., 0]
+    ce = (lse - ll) * mask
+    n = mask.sum().clamp(min=1)
+    ce_mean = ce.sum() / n
+    return ce_mean + aux_weight * aux, {"ce": ce_mean, "aux": aux,
+                                        "ntok": n}
 
 
 # --------------------------------------------------------------------------
@@ -274,11 +349,13 @@ def _decode_ctx(cfg, ctx, positions):
         rope=_rope_for(cfg, 1, positions.device, positions=positions))
 
 
-def decode_step(cfg, params, cache, tokens, positions, *, ctx: L.Ctx):
+def decode_step(cfg, params, cache, tokens, positions, *, ctx: L.Ctx,
+                unroll: int = 1):
     """One decode step. tokens: (B, 1); positions: (B,).
 
     Returns (logits (B, 1, V) fp32, cache). The cache is updated in place
     (the reference returns an updated copy); the same dict is returned.
+    ``unroll`` is accepted and ignored.
     """
     _check_served(cfg)
     x = _embed_tokens(params, tokens, ctx.act_dtype)
@@ -320,14 +397,15 @@ def split_serve_params(cfg, params, cut_units: int):
 
 
 def decode_step_split(cfg, params_sat, params_gnd, cache, tokens, positions,
-                      *, ctx: L.Ctx):
+                      *, ctx: L.Ctx, unroll: int = 1):
     """One decode step of the SPLIT model: the satellite half's units,
     then the ground half's, in the same order as :func:`decode_step`.
 
     ``cache`` is the full stacked decode cache; each half updates its own
     unit slices in place. Returns ``(logits (B, 1, V) fp32, cache,
     boundary)`` where ``boundary`` is the activation ``(B, 1, d_model)``
-    that crosses the satellite->ground downlink.
+    that crosses the satellite->ground downlink. ``unroll`` is accepted
+    and ignored.
     """
     cut = _n_units(params_sat)
     x = _embed_tokens(params_sat, tokens, ctx.act_dtype)
@@ -338,3 +416,36 @@ def decode_step_split(cfg, params_sat, params_gnd, cache, tokens, positions,
                       boundary, dctx)
     x = L.rmsnorm(params_gnd["final_norm"], x, cfg.norm_eps)
     return _head(cfg, params_gnd, x), cache, boundary
+
+
+# --------------------------------------------------------------------------
+# Split-learning segment execution (the paper's cut, on a real model).
+# --------------------------------------------------------------------------
+
+def n_blocks(cfg) -> int:
+    return cfg.n_units * len(cfg.pattern_unit())
+
+
+def forward_segment(cfg, params, x, lo: int, hi: int, *, ctx: L.Ctx,
+                    tokens=None, unit_offset: int = 0):
+    """Apply blocks [lo, hi). lo == 0 consumes ``tokens`` via the
+    embedding; hi == n_blocks applies the final norm and the head (f32
+    logits). ``unit_offset``: params["units"] holds units starting at this
+    index (segment trees are slices of the full stacked tree)."""
+    _check_served(cfg)
+    pat = cfg.pattern_unit()
+    if lo == 0:
+        if tokens is None:
+            raise ValueError("forward_segment from block 0 needs tokens")
+        x = _embed_tokens(params, tokens, ctx.act_dtype)
+    ctx = dataclasses.replace(ctx, rope=_rope_for(cfg, x.shape[1], x.device))
+    for idx in range(lo, hi):
+        u, j = divmod(idx, len(pat))
+        kind = pat[j]
+        p = (params.get("shared") if kind == "shared_attn"
+             else _unit(params["units"], u - unit_offset)[f"{j}:{kind}"])
+        x, _ = _apply_block(cfg, kind, p, x, ctx, None)
+    if hi == n_blocks(cfg):
+        x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
+        return _head(cfg, params, x)
+    return x

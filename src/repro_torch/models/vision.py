@@ -27,6 +27,7 @@ from __future__ import annotations
 
 from typing import Any, Dict, List
 
+import torch
 import torch.nn.functional as F
 
 from repro_torch.models.param import ParamSpec
@@ -137,6 +138,17 @@ def ae_apply_range(params, x, lo: int, hi: int):
     return _nhwc(x)
 
 
+def ae_loss(params, images, *, cut=None):
+    """MSE reconstruction; ``cut`` optionally runs the two segments with
+    an explicit boundary (matching the SL execution graph)."""
+    if cut is None:
+        recon = ae_apply_range(params, images, 0, 10)
+    else:
+        z = ae_apply_range(params, images, 0, cut)
+        recon = ae_apply_range(params, z, cut, 10)
+    return torch.mean(torch.square(recon.float() - images.float()))
+
+
 # ==========================================================================
 # ResNet-18.
 # ==========================================================================
@@ -196,3 +208,16 @@ def resnet18_apply_range(params, x, lo: int, hi: int):
         else:
             x = _basic_block(p, x, _STRIDES.get(name, 1))
     return _nhwc(x)
+
+
+def resnet18_loss(params, images, labels, *, cut=None):
+    """Mean softmax cross-entropy of the logits; ``cut`` as in
+    :func:`ae_loss`."""
+    if cut is None:
+        logits = resnet18_apply_range(params, images, 0, 10)
+    else:
+        z = resnet18_apply_range(params, images, 0, cut)
+        logits = resnet18_apply_range(params, z, cut, 10)
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = logits.gather(-1, labels.long()[:, None])[:, 0]
+    return torch.mean(lse - ll)

@@ -73,11 +73,13 @@ class Request:
 
 
 class DecodeEngine:
-    """Greedy decoding over ``n_slots`` concurrent requests on ``device``."""
+    """Greedy decoding over ``n_slots`` concurrent requests on ``device``.
+    ``use_pallas`` (the reference's TPU-kernel switch) is accepted and
+    ignored: the card always takes the Hopper kernels."""
 
     def __init__(self, cfg, params, *, n_slots: int = 4, s_max: int = 512,
-                 act_dtype=torch.bfloat16, prefill: str = "bulk",
-                 device="cuda"):
+                 act_dtype=torch.bfloat16, use_pallas: bool = False,
+                 prefill: str = "bulk", device="cuda"):
         if prefill not in ("bulk", "loop"):
             raise ValueError(f"prefill must be 'bulk' or 'loop', "
                              f"got {prefill!r}")

@@ -1,24 +1,44 @@
-"""Analytic FLOPs / bytes accounting of the paper's two vision models
-(fvcore-equivalent, pure python): the port's copy of the vision part of
-``repro/utils/flops.py``.
+"""Analytic FLOPs / bytes accounting (fvcore-equivalent, pure python):
+the port's copy of ``repro/utils/flops.py``.
 
-Conventions (fvcore's flop_count):
+Conventions (match fvcore's flop_count and the roofline spec):
   * one multiply-add = 2 FLOPs,
-  * ``fwd`` counts the forward pass per *item* (image),
-  * training work = fwd + bwd ≈ 3 × fwd (bwd wrt inputs + wrt weights).
+  * ``fwd`` counts the forward pass per *item* (image / sequence),
+  * training work = fwd + bwd ≈ 3 × fwd (bwd wrt inputs + wrt weights),
+  * MODEL_FLOPS for LM rooflines = 6 · N_params · tokens (dense) or
+    6 · N_active · tokens (MoE), per the Kaplan/Chinchilla convention.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import List
+from typing import List, Optional, Sequence
 
 TRAIN_MULT = 3.0           # fwd + bwd(inputs) + bwd(weights)
+
+
+def matmul_flops(m: float, k: float, n: float) -> float:
+    """C[m,n] = A[m,k] @ B[k,n]: 2*m*k*n FLOPs."""
+    return 2.0 * m * k * n
 
 
 def conv2d_flops(h_out: float, w_out: float, c_in: float, c_out: float,
                  kh: int, kw: int, groups: int = 1) -> float:
     """Per-image conv2d forward FLOPs (2 per MAC)."""
     return 2.0 * h_out * w_out * c_out * (c_in / groups) * kh * kw
+
+
+def attention_flops(seq_q: float, seq_kv: float, n_heads: float,
+                    d_head: float, causal: bool = False,
+                    window: Optional[int] = None) -> float:
+    """QK^T + AV matmul FLOPs for one sequence (logits+probs ignored)."""
+    if window is not None and window < seq_kv:
+        # sliding window: each query attends to <= window keys
+        eff = seq_q * min(window, seq_kv)
+    elif causal and seq_q == seq_kv:
+        eff = seq_q * seq_kv / 2.0
+    else:
+        eff = seq_q * seq_kv
+    return 2.0 * 2.0 * n_heads * eff * d_head   # 2 matmuls x 2 FLOP/MAC
 
 
 @dataclasses.dataclass(frozen=True)
@@ -29,11 +49,23 @@ class LayerCost:
     fwd_flops: float            # per item, forward only
     param_bytes: float          # segment-handoff payload contribution
     out_bits: float             # boundary activation bits per item if cut AFTER this layer
-    # Active params actually touched per item (== param count for the
-    # dense vision models).
+    # Active params actually touched per item (== param count for dense,
+    # top_k/E fraction for MoE). Used for MODEL_FLOPS.
     active_param_count: float = 0.0
     param_count: float = 0.0
 
+
+def total_fwd_flops(layers: Sequence[LayerCost]) -> float:
+    return sum(l.fwd_flops for l in layers)
+
+
+def total_param_bytes(layers: Sequence[LayerCost]) -> float:
+    return sum(l.param_bytes for l in layers)
+
+
+# --------------------------------------------------------------------------
+# Paper models: autoencoder (Fig. 3 top) and ResNet-18 (Fig. 3 bottom).
+# --------------------------------------------------------------------------
 
 def autoencoder_layer_costs(img: int = 224, base: int = 16,
                             latent_ch: int = 3, act_bits: int = 32) -> List[LayerCost]:
@@ -114,3 +146,54 @@ def resnet18_layer_costs(img: int = 224, n_classes: int = 1000,
                             param_count=512 * n_classes,
                             active_param_count=512 * n_classes))
     return layers
+
+
+# --------------------------------------------------------------------------
+# LM architectures: per-block analytic FLOPs from an ArchConfig-like object.
+# --------------------------------------------------------------------------
+
+def lm_block_fwd_flops(d_model: int, n_heads: int, n_kv_heads: int,
+                       d_ff: int, seq: int, block_kind: str = "attn",
+                       n_experts: int = 0, top_k: int = 0,
+                       d_head: Optional[int] = None,
+                       ssm_state: int = 64, causal: bool = True,
+                       window: Optional[int] = None,
+                       mlp_kind: str = "swiglu") -> float:
+    """Forward FLOPs for one block processing a whole sequence of length seq."""
+    dh = d_head or (d_model // n_heads)
+    f = 0.0
+    if block_kind in ("attn", "attn_dense", "shared_attn"):
+        # projections: q (H*dh), k,v (KV*dh), o (H*dh)
+        f += matmul_flops(seq, d_model, (2 * n_heads + 2 * n_kv_heads) * dh)
+        f += attention_flops(seq, seq, n_heads, dh, causal=causal, window=window)
+    elif block_kind == "mamba2":
+        d_inner = 2 * d_model
+        f += matmul_flops(seq, d_model, 2 * d_inner)          # in_proj (x, z)
+        f += 2.0 * seq * d_inner * 4                          # conv1d k=4
+        f += matmul_flops(seq, d_inner, 2 * ssm_state + 1)    # B, C, dt
+        f += 6.0 * seq * d_inner * ssm_state                  # selective scan
+        f += matmul_flops(seq, d_inner, d_model)              # out_proj
+        return f                                              # no separate FFN
+    elif block_kind == "mlstm":
+        d_inner = 2 * d_model
+        f += matmul_flops(seq, d_model, 3 * d_inner)          # q,k,v proj
+        f += 6.0 * seq * d_inner * dh                         # matrix-memory update
+        f += matmul_flops(seq, d_inner, d_model)
+        return f
+    elif block_kind == "slstm":
+        f += matmul_flops(seq, d_model, 4 * d_model) * 2      # gates in+rec
+        f += 10.0 * seq * d_model
+        return f
+    # FFN part
+    if n_experts and top_k:
+        f += matmul_flops(seq, d_model, n_experts)            # router
+        f += top_k * 3.0 * matmul_flops(seq, d_model, d_ff)   # gate/up/down per active expert
+    elif d_ff:
+        n_mm = 3.0 if mlp_kind == "swiglu" else 2.0
+        f += n_mm * matmul_flops(seq, d_model, d_ff)          # SwiGLU / GELU MLP
+    return f
+
+
+def lm_embed_head_fwd_flops(d_model: int, vocab: int, seq: int) -> float:
+    """Output head matmul (embedding lookup is a gather ~0 FLOPs)."""
+    return matmul_flops(seq, d_model, vocab)

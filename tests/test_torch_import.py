@@ -48,7 +48,9 @@ def test_modules_and_chip_smoke_import_without_jax():
             "repro_torch.serve_fleet.traffic",
             "repro_torch.serve_fleet.__main__", "repro_torch.obs.__main__",
             "repro_torch.launch.paper_tables",
-            "repro_torch.configs.granite_3_2b"} <= set(mods)
+            "repro_torch.configs.granite_3_2b",
+            "repro_torch.train.step", "repro_torch.launch.train",
+            "repro_torch.launch.lm_split_train"} <= set(mods)
     code = ("import sys\n"
             "sys.modules['jax'] = None\n"
             "sys.modules['repro'] = None\n"
@@ -88,8 +90,9 @@ def _entry_points_refuse_cpu_unless_asked(monkeypatch):
     from repro_torch import configs
     from repro_torch.fleet import __main__ as fleet_main
     from repro_torch.isl import __main__ as isl_main
-    from repro_torch.launch import (constellation, device_sim, paper_tables,
-                                    serve)
+    from repro_torch.launch import (constellation, device_sim,
+                                    lm_split_train, paper_tables, serve,
+                                    train)
     from repro_torch.obs import __main__ as obs_main
     from repro_torch.serve_fleet import __main__ as serve_fleet_main
     from repro_torch.sim import device_sim as sim_device_sim
@@ -139,6 +142,14 @@ def _entry_points_refuse_cpu_unless_asked(monkeypatch):
         obs_main.main(["render", "--out", "unused.json"])
     with pytest.raises(RuntimeError, match="cuda"):
         paper_tables.main([])
+    # LM training: the train CLI and the split-training example (each
+    # run with --device cpu in tests/test_torch_train_step.py and below)
+    with pytest.raises(RuntimeError, match="cuda"):
+        train.main(["--smoke", "--steps", "1"])
+    with pytest.raises(RuntimeError, match="cuda"):
+        lm_split_train.main(["--steps", "1"])
+    losses = lm_split_train.main(["--steps", "3", "--device", "cpu"])
+    assert len(losses) == 3 and losses[-1] < losses[0]
 
 
 def test_chip_smoke_fails_without_a_card():
