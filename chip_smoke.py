@@ -10,8 +10,10 @@ Phases, each fatal on failure:
   2. build the CUDA kernels from ``src/repro_torch/csrc`` into ``build/``;
   3. each attention kernel against its plain PyTorch version at
      SmolLM-360M's head geometry, at Zamba2-1.2B's (MHA, 32 heads), at
-     Granite-3.0-2B's (32 heads, 8 KV heads) and at head dim 16 (the
-     smoke configs' heads), the Mamba-2 chunked scan
+     Granite-3.0-2B's (32 heads, 8 KV heads), at head dim 16 (the
+     smoke configs' heads) and at head dim 128 (phase 13's models: 32/8,
+     48/8 and 28/4 heads at S = 512, Mixtral's 4,096-token window at
+     S = 6,144, and B2's lse), the Mamba-2 chunked scan
      against its plain version at Zamba2's full-width heads, the mLSTM
      chunkwise scan against its plain version at xLSTM-1.3B's (H=4,
      P=1024), and both entries of the SL boundary quantizer (codes and
@@ -109,7 +111,19 @@ Phases, each fatal on failure:
      launches a SL step with no copy, the boundary's bits, one SL step
      kernel path against plain path, SL steps/s; (c) one train step of
      the Zamba2 and xLSTM smoke configs on the card, every projection
-     weight's gradient nonzero and equal to the CPU's.
+     weight's gradient nonzero and equal to the CPU's, then the same for
+     the Mixtral and Phi-3.5-MoE smoke configs under both MoE dispatch
+     layouts (router and experts nonzero);
+ 13. the head-dim-128 architectures: (a) Mixtral-8x7B at its published
+     widths cut to 16 of its 32 layers (bf16 weights at rest, 46.96 GB),
+     split at unit 8, phase 4's checks (16 B2 a prefill, 16 B3 a decode
+     step; its decode logits held in f32 activations, its f32 prefill
+     logits on 2 units of f32 weights) and its peak device memory; (b)
+     Llama-3-8B, InternLM2-20B, Qwen2-VL-7B and Phi-3.5-MoE at their
+     published widths, 2 units each (f32 weights), split at unit 1: 8
+     prefills and 8 decode steps with every kernel call held to its
+     plain version, exact counts, split == unsplit, f32 logits kernel vs
+     plain, and Qwen2-VL's 256-patch vision prefix.
 Phase 3 also holds B2's lse and its autograd Function at SmolLM's
 training shape (the plain backward timed beside SDPA's forward +
 backward), and the scans' Functions at full-width heads (gradients bit
@@ -126,6 +140,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -163,14 +178,15 @@ from repro_torch.kernels import (_build, decode_attn, flash_attn,  # noqa: E402
                                  mamba_scan, mlstm_scan, ops, split_quant)
 from repro_torch.kernels.recompute import flat  # noqa: E402
 from repro_torch.models import lm  # noqa: E402
-from repro_torch.models.param import map_tree  # noqa: E402
+from repro_torch.models.param import init_params, map_tree  # noqa: E402
 from repro_torch.obs.ring import EV_EXCHANGE, EV_SERVE  # noqa: E402
 from repro_torch.train.optimizer import resolve_optimizer  # noqa: E402
 from repro_torch.utils.bucketing import bucket_size  # noqa: E402
 from repro_torch.utils.treeutil import (tree_flatten_with_names,  # noqa: E402
                                        tree_leaves)
 from repro_torch.models.layers import Ctx  # noqa: E402
-from repro_torch.serve.engine import DecodeEngine, Request  # noqa: E402
+from repro_torch.serve.engine import (DecodeEngine, Request,  # noqa: E402
+                                      _cast_matmul_weights)
 from repro_torch.serve_fleet import __main__ as serve_fleet_main  # noqa: E402
 from repro_torch.serve_fleet.__main__ import (  # noqa: E402
     SMOKE_TRAFFIC, SMOKE_TRAIN, serve_windows)
@@ -203,6 +219,14 @@ MHA_H = 32                                           # Zamba2-1.2B: H = KV
 GRANITE_H, GRANITE_KV = 32, 8                        # Granite-3.0-2B: group 4
 GRANITE_PREFILL_S = (5, 512)     # 5: the serving traffic's prompts (11a)
 SMOKE_H, SMOKE_D = 4, 16               # the smoke configs' heads (Zamba2's)
+# Head dim 128 (phase 13's models): (H, KV) of Llama-3-8B, Mixtral-8x7B and
+# Phi-3.5-MoE (group 4), InternLM2-20B (group 6) and Qwen2-VL-7B (group 7;
+# B3 serves groups 6 and 7 in its 8-head bucket), at S = 512; Mixtral's
+# sliding window at a prompt past it; B2's lse at Mixtral's heads.
+D128 = 128
+D128_HEADS = [(32, 8), (48, 8), (28, 4)]
+D128_S = 512
+MIXTRAL_WINDOW_S, MIXTRAL_WINDOW = 6144, 4096
 PREFILL_S = (1, 77, 498, 512, 1000)     # 498: the longest served prompt
 DECODE_B, DECODE_S = 8, 2048
 DECODE_LENS = [1, 2048, 100, 513, 1024, 37, 2000, 777]
@@ -322,29 +346,44 @@ def bound(nbytes, nops, dtype):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def check_prefill(dtype, S, gen, flush, H=H, KV=KV, D=D):
+def check_prefill(dtype, S, gen, flush, H=H, KV=KV, D=D, window=None):
     dev = torch.device("cuda")
     q, k, v = [torch.randn(s, generator=gen, device=dev).to(dtype)
                for s in ((1, H, S, D), (1, KV, S, D), (1, KV, S, D))]
-    got = flash_attn.flash_attention_fwd(q, k, v, causal=True)
-    want = flash_attn.flash_attention_plain(q, k, v, causal=True)
+    got = flash_attn.flash_attention_fwd(q, k, v, causal=True, window=window)
+    want = flash_attn.flash_attention_plain(q, k, v, causal=True,
+                                            window=window)
     torch.cuda.synchronize()
     err = (got.float() - want.float()).abs().max().item()
     torch.testing.assert_close(got.float(), want.float(), atol=TOL[dtype],
                                rtol=TOL[dtype])
+    del want
     kx, vx = k.repeat_interleave(H // KV, 1), v.repeat_interleave(H // KV, 1)
-    pairs = S * (S + 1) // 2                        # causal (q, k) pairs
+    # the (q, k) pairs of the causal band, within the window if any
+    w = S if window is None else min(window, S)
+    pairs = w * (w + 1) // 2 + (S - w) * w
     b_ms, b_by = bound((2 * q.numel() + 2 * k.numel()) * q.element_size(),
                        4 * D * H * pairs, dtype)
+    if window is None:
+        sdpa = lambda: F.scaled_dot_product_attention(q, kx, vx,
+                                                      is_causal=True)
+    else:
+        pos = torch.arange(S, device=dev)
+        band = (pos[None, :] <= pos[:, None]) & (pos[None, :]
+                                                 > pos[:, None] - window)
+        sdpa = lambda: F.scaled_dot_product_attention(q, kx, vx,
+                                                      attn_mask=band)
     return dict(
-        shape=f"prefill B=1 H={H} KV={KV} S={S} D={D} {str(dtype)[6:]}",
+        shape=f"prefill B=1 H={H} KV={KV} S={S} D={D}"
+              + ("" if window is None else f" window={window}")
+              + f" {str(dtype)[6:]}",
         max_abs_err=err,
-        ms=time_ms(lambda: flash_attn.flash_attention_fwd(q, k, v),
+        ms=time_ms(lambda: flash_attn.flash_attention_fwd(q, k, v,
+                                                          window=window),
                    flush=flush),
-        plain_ms=time_ms(lambda: flash_attn.flash_attention_plain(q, k, v),
-                         flush=flush),
-        library_ms=time_ms(lambda: F.scaled_dot_product_attention(
-            q, kx, vx, is_causal=True), flush=flush),
+        plain_ms=time_ms(lambda: flash_attn.flash_attention_plain(
+            q, k, v, window=window), flush=flush),
+        library_ms=time_ms(sdpa, flush=flush),
         bound_ms=b_ms, bound_by=b_by)
 
 
@@ -568,6 +607,24 @@ SERVED["xlstm_1_3b"] = dict(dims=(48, 2048, 50304), cut=3,
 SERVED["granite_3_2b"] = dict(dims=(40, 2048, 49155), cut=20,
                               per_prompt={"flash_attn_fwd": 40},
                               per_step={"decode_attn": 40})
+# Phase 13a: Mixtral-8x7B at its published widths (d 4,096, 32/8 heads of
+# 128, d_ff 14,336, 8 experts top-2, window 4,096, vocab 32,000), cut in
+# depth: 32 layers are 46.70 B parameters, 93.4 GB in bf16, past the
+# card's 80 GB; 16 layers are 23.48 B, 46.96 GB. A model cut in depth
+# (``published_layers``) has its weights built unit by unit into one
+# bf16 copy at rest (init_bf16_at_rest) and takes its f32 logits check
+# on F32_UNITS units of the same widths (Mixtral: 12.7 GB in f32).
+SERVED["mixtral_8x7b"] = dict(dims=(16, 4096, 32000), cut=8,
+                              published_layers=32,
+                              per_prompt={"flash_attn_fwd": 16},
+                              per_step={"decode_attn": 16})
+F32_UNITS = 2
+# Phase 13b: the other four models of head dim 128 at their published
+# widths, 2 units each (f32 weights), split at unit 1: (d, vocab, group).
+TWO_UNIT = {"llama3_8b": (4096, 128256, 4), "internlm2_20b": (6144, 92544, 6),
+            "qwen2_vl_7b": (3584, 152064, 7), "phi35_moe": (4096, 32064, 4)}
+TWO_UNIT_REQUESTS, TWO_UNIT_STEPS = 8, 8   # 8 prefills, then 8 decode steps
+QWEN_PREFIX_S = 320                        # 256 vision patches + 64 tokens
 # The served engines' slots, cache length and activations.
 SERVE_KW = dict(n_slots=8, s_max=2048, act_dtype=torch.bfloat16,
                 device="cuda")
@@ -654,16 +711,53 @@ def logits_close(lk, lp, what, tol_of_max=LOGITS_TOL_OF_MAX):
     return err, top, agree
 
 
+def init_bf16_at_rest(cfg, gen):
+    """Seeded random weights of ``cfg`` in one bf16 copy at rest (the
+    leaves the engines keep in f32, ``F32_LEAVES``, in f32), drawn unit
+    by unit: ``lm.init`` draws every leaf in f32 at once, which for
+    Mixtral at 16 layers is 93.9 GB. The engines' cast to bf16 then keeps
+    these tensors as they are, so every engine shares them."""
+    tree = lm.abstract_params(cfg)
+    cast = lambda t: _cast_matmul_weights(t, torch.bfloat16, "cuda")
+    params = cast(init_params({k: v for k, v in tree.items()
+                               if k != "units"}, gen))
+    unit_spec = map_tree(lambda sp: dataclasses.replace(
+        sp, shape=sp.shape[1:]), tree["units"])
+    units = None
+    for u in range(cfg.n_units):
+        one = cast(init_params(unit_spec, gen))
+        if units is None:
+            units = map_tree(lambda t: t.new_empty((cfg.n_units,) + t.shape),
+                             one)
+        for (_, dst), (_, src) in zip(tree_flatten_with_names(units),
+                                      tree_flatten_with_names(one)):
+            dst[u].copy_(src)
+        del one
+    params["units"] = units
+    return params
+
+
 def serve_full_width(arch, label):
-    """Phases 4, 6, 7 and 11a's first half: the served model at full
-    width. Returns (the kernels' launches on the served run, the split
-    engine, the f32 weights)."""
+    """Phases 4, 6, 7, 11a's first half and 13a: the served model at full
+    width (13a: published widths, cut in depth, bf16 weights at rest).
+    Returns (the kernels' launches on the served run, the split engine,
+    the weights)."""
     spec = SERVED[arch]
     cfg = configs.get(arch)
+    if "published_layers" in spec:
+        check(cfg.n_layers == spec["published_layers"],
+              f"published {arch} depth")
+        cfg = dataclasses.replace(cfg, n_layers=spec["dims"][0])
+        print(f"  reduced: n_layers {spec['published_layers']} → "
+              f"{cfg.n_layers} ({cfg.param_count() / 1e9:.2f} B parameters, "
+              f"{2 * cfg.param_count() / 1e9:.2f} GB in bf16) [{label}]")
     check((cfg.n_layers, cfg.d_model, cfg.vocab) == spec["dims"],
           f"full-width {arch} config")
     cut = spec["cut"]
-    params = lm.init(cfg, torch.Generator(device="cuda").manual_seed(0))
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    cut_in_depth = "published_layers" in spec
+    params = init_bf16_at_rest(cfg, gen) if cut_in_depth else \
+        lm.init(cfg, gen)
     split = SplitDecodeEngine(cfg, params, cut_units=cut, **SERVE_KW)
     rng = np.random.default_rng(0)
     plens = rng.integers(32, 513, 16)
@@ -718,19 +812,52 @@ def serve_full_width(arch, label):
     unsplit = DecodeEngine(cfg, params, **SERVE_KW).submit_and_run(reqs())
     check(unsplit == out, "split and unsplit greedy tokens differ")
 
-    # one decode step's f32 logits: kernel path vs plain path, same state
+    # one decode step's f32 logits: kernel path vs plain path, same state,
+    # in bf16 activations; an MoE model runs that step
+    # with every kernel call held to its plain version and its logits
+    # printed, and holds the logits of the same step in f32 activations:
+    # in bf16 a 1-ulp difference can flip a token's top-k expert or push
+    # another token past an expert's capacity, a discrete change of that
+    # row (PERF.md, Findings)
     tokens = torch.tensor(split.last_tok[:, None], device="cuda")
     positions = torch.tensor(np.minimum(plens[:8] + 3, 2047), device="cuda")
     ctx = Ctx(cfg=cfg, mode="decode", act_dtype=torch.bfloat16)
     cache0 = map_tree(torch.clone, split.cache)
+    moe_decode = ""
     with torch.no_grad():
-        lk, _, _ = lm.decode_step_split(cfg, split.params_sat,
-                                        split.params_gnd, split.cache,
-                                        tokens, positions, ctx=ctx)
-        lp, _, _ = with_plain_ops(lambda: lm.decode_step_split(
-            cfg, split.params_sat, split.params_gnd, cache0, tokens,
-            positions, ctx=ctx))
-    d_err, d_max, d_agree = logits_close(lk, lp, "decode")
+        if cfg.n_experts:
+            c32 = [map_tree(lambda t: t.float(), cache0) for _ in range(2)]
+        step = lambda c, dt: lm.decode_step_split(
+            cfg, split.params_sat, split.params_gnd, c, tokens, positions,
+            ctx=dataclasses.replace(ctx, act_dtype=dt))
+        if cfg.n_experts:
+            (lk, _, _), dcalls = with_checked_ops(
+                lambda: step(split.cache, torch.bfloat16))
+        else:
+            lk, _, _ = step(split.cache, torch.bfloat16)
+        lp, _, _ = with_plain_ops(lambda: step(cache0, torch.bfloat16))
+        if cfg.n_experts:
+            lk32, _, _ = step(c32[0], torch.float32)
+            lp32, _, _ = with_plain_ops(lambda: step(c32[1], torch.float32))
+            del c32
+    del cache0
+    if cfg.n_experts:
+        check({n: c[0] for n, c in dcalls.items()}
+              == {OP_OF[k]: n for k, n in spec["per_step"].items()},
+              f"checked decode calls {dcalls}")
+        row_err = (lk - lp).abs().amax(dim=(1, 2))
+        b_agree = (lk.argmax(-1) == lp.argmax(-1)).float().mean().item()
+        d_err, d_max, d_agree = logits_close(lk32, lp32, "f32 decode")
+        moe_decode = (
+            f"; the same step in bf16 activations: every call vs plain "
+            f"(calls, err, max |plain|) " + ", ".join(
+                f"{n} {c}x ({e:.3e}, {t:.3e})" for n, (c, e, t) in
+                dcalls.items())
+            + f", logits max abs err by row "
+            f"{[round(e, 4) for e in row_err.tolist()]} (not held: top-k "
+            f"routing flips), argmax equal in {b_agree:.0%} of 8 rows")
+    else:
+        d_err, d_max, d_agree = logits_close(lk, lp, "decode")
 
     # one prefill (the longest prompt): in bf16 every kernel call against
     # its plain version on the same inputs, and the logits of both paths
@@ -738,15 +865,23 @@ def serve_full_width(arch, label):
     longest = torch.tensor(prompts[int(np.argmax(plens))][None, :],
                            device="cuda")
     pctx = Ctx(cfg=cfg, mode="prefill", act_dtype=torch.bfloat16)
-    pctx32 = Ctx(cfg=cfg, mode="prefill", act_dtype=torch.float32)
+    # f32 weights for the f32 logits: the model's own, or (cut in depth)
+    # f32 weights of F32_UNITS units at the same widths
+    cfg32, params32 = cfg, params
+    if cut_in_depth:
+        cfg32 = dataclasses.replace(
+            cfg, n_layers=F32_UNITS * len(cfg.pattern_unit()))
+        params32 = lm.init(cfg32, torch.Generator(device="cuda")
+                           .manual_seed(1))
+    pctx32 = Ctx(cfg=cfg32, mode="prefill", act_dtype=torch.float32)
     with torch.no_grad():
         (pk, _, _), calls = with_checked_ops(lambda: lm.forward(
             cfg, split.params, longest, ctx=pctx))
         pp, _, _ = with_plain_ops(lambda: lm.forward(
             cfg, split.params, longest, ctx=pctx))
-        pk32, _, _ = lm.forward(cfg, params, longest, ctx=pctx32)
+        pk32, _, _ = lm.forward(cfg32, params32, longest, ctx=pctx32)
         pp32, _, _ = with_plain_ops(lambda: lm.forward(
-            cfg, params, longest, ctx=pctx32))
+            cfg32, params32, longest, ctx=pctx32))
         spread = 0.0
         if "mlstm_scan" in spec["per_prompt"]:
             # the plain path at the model's chunk against the plain path
@@ -757,6 +892,7 @@ def serve_full_width(arch, label):
                     if name == "mlstm_scan" else plain,
                 lambda: lm.forward(cfg, params, longest, ctx=pctx32))
             spread = (pq32 - pp32).abs().max().item()
+    del params32
     want_calls = {OP_OF[k]: n for k, n in spec["per_prompt"].items()}
     check({n: c[0] for n, c in calls.items()} == want_calls,
           f"checked prefill calls {calls}")
@@ -793,8 +929,9 @@ def serve_full_width(arch, label):
           f"(decode steps launched {step_launches}); split tokens == "
           f"unsplit")
     print(f"  logits kernel vs plain (tol {LOGITS_TOL_OF_MAX:.0%} of max "
-          f"|logit|): decode max abs err {d_err:.3e} of {d_max:.3e}, argmax "
-          f"equal in {d_agree:.0%} of 8 rows")
+          f"|logit|): decode" + (" (f32 activations)" if moe_decode else "")
+          + f" max abs err {d_err:.3e} of {d_max:.3e}, argmax "
+          f"equal in {d_agree:.0%} of 8 rows{moe_decode}")
     print(f"  prefill of {longest.shape[1]} tokens, kernel vs plain: bf16 "
           f"calls (err, max |plain|) " + ", ".join(
               f"{n} {c}x ({e:.3e}, {t:.3e})" for n, (c, e, t) in
@@ -802,7 +939,9 @@ def serve_full_width(arch, label):
           f"(not held: differences grow along the sequence), argmax equal "
           f"in {b_agree:.1%}; f32 logits max abs err {p_err:.3e} of "
           f"{p_max:.3e} (tol {p_tol:.3g} of max; mLSTM chunking spread "
-          f"{spread:.3e}), argmax equal in {p_agree:.1%} of positions")
+          f"{spread:.3e}), argmax equal in {p_agree:.1%} of positions"
+          + (f"; f32 logits on {cfg32.n_layers} layers of f32 weights at "
+             f"the same widths" if cfg32 is not cfg else ""))
     profile_decode(split, label)
     profile_calls(lambda: split._prefill(prompts[int(np.argmax(plens))]), 3,
                   f"prefills of {longest.shape[1]} tokens", label)
@@ -1977,13 +2116,13 @@ def serving_clis_11b(label):
           f"on the float64 solver on the card) [{label}]")
 
 
-def check_flash_train(dtype, gen, flush):
-    """B2 at SmolLM-360M's training shape: the kernel's lse against the
-    plain lse, its time with and without lse, the plain backward's time
-    beside SDPA's forward + backward, and the autograd Function's
-    gradients against the plain path's."""
+def check_flash_train(dtype, gen, flush, B=TRAIN_B, S=TRAIN_S, H=H, KV=KV,
+                      D=D):
+    """B2 with its lse at SmolLM-360M's training shape (or another): the
+    kernel's lse against the plain lse, its time with and without lse,
+    the plain backward's time beside SDPA's forward + backward, and the
+    autograd Function's gradients against the plain path's."""
     dev = torch.device("cuda")
-    B, S = TRAIN_B, TRAIN_S
     q, k, v, do = [torch.randn(s, generator=gen, device=dev).to(dtype)
                    for s in ((B, H, S, D), (B, KV, S, D), (B, KV, S, D),
                              (B, H, S, D))]
@@ -2261,15 +2400,20 @@ def lm_split_ring_12b(label):
 
 
 def smoke_train_12c(label):
-    """Phase 12c: the Zamba2 and xLSTM smoke configs on the card (B4 / B5
-    and B2 with gradients), under full and selective (dots) remat: each
+    """Phase 12c: the Zamba2, xLSTM, Mixtral and Phi-3.5-MoE smoke configs
+    on the card (B4 / B5 and B2 with gradients; the MoE configs under both
+    dispatch layouts), under full and selective (dots) remat: each
     kernel launched twice a layer (the forward and the recompute), every
-    projection weight with a nonzero gradient, equal to the same loss and
-    gradient on the CPU; then one train step on the card."""
+    projection weight (the MoE router and experts included) with a
+    nonzero gradient, equal to the same loss and gradient on the CPU;
+    then one train step on the card."""
     proj = ("wq", "wk", "wv", "wo", "wi", "w_in", "w_bc", "w_dt", "w_out",
-            "w_qkv", "w_if", "w_x", "w_h")
+            "w_qkv", "w_if", "w_x", "w_h", "router")
+    kernel_of = {"zamba2_1_2b": "mamba_scan", "xlstm_1_3b": "mlstm_scan",
+                 "mixtral_8x7b": "flash_attn_fwd",
+                 "phi35_moe": "flash_attn_fwd"}
     total = {n: 0 for n in WRAPPERS}
-    for arch in ("zamba2_1_2b", "xlstm_1_3b"):
+    for arch, want in kernel_of.items():
         cfg = configs.get_smoke(arch)
         params = lm.init(cfg, torch.Generator().manual_seed(0))
         toks = torch.randint(0, cfg.vocab, (2, 129), dtype=torch.int32,
@@ -2277,16 +2421,20 @@ def smoke_train_12c(label):
         batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
         on_card = map_tree(lambda t: t.to("cuda"), params)
         card_batch = {k: v.cuda() for k, v in batch.items()}
-        want = "mamba_scan" if arch == "zamba2_1_2b" else "mlstm_scan"
-        for remat in ("full", "dots"):
-            tcfg = TrainConfig(act_dtype=torch.float32, remat=remat)
+        dispatches = ("global", "batch_local") if cfg.n_experts else \
+            ("global",)
+        for remat, dispatch in [(r, m) for m in dispatches
+                                for r in ("full", "dots")]:
+            tcfg = TrainConfig(act_dtype=torch.float32, remat=remat,
+                               moe_dispatch=dispatch)
             lp, _, gp = loss_and_grads(cfg, tcfg, params, batch)
             for fn in WRAPPERS.values():
                 fn.launches = 0
             with torch.no_grad():
                 lm.loss(cfg, on_card, card_batch["tokens"],
                         card_batch["labels"],
-                        ctx=Ctx(cfg=cfg, act_dtype=torch.float32),
+                        ctx=Ctx(cfg=cfg, act_dtype=torch.float32,
+                                moe_dispatch=dispatch),
                         remat="none")
             once = {n: fn.launches for n, fn in WRAPPERS.items()}
             lc, _, gc = loss_and_grads(cfg, tcfg, on_card, card_batch)
@@ -2296,8 +2444,8 @@ def smoke_train_12c(label):
                   f"12c {arch} remat {remat}: forward {once}, loss and "
                   f"gradient {launches}: want twice the forward's")
             check(abs(float(lc) - float(lp)) <= 1e-5 * abs(float(lp)),
-                  f"12c {arch} remat {remat} loss card {float(lc)} cpu "
-                  f"{float(lp)}")
+                  f"12c {arch} remat {remat} {dispatch} loss card "
+                  f"{float(lc)} cpu {float(lp)}")
             cpu = dict(tree_flatten_with_names(gp))
             n_proj, g_err = 0, 0.0
             for name, g in tree_flatten_with_names(gc):
@@ -2308,7 +2456,9 @@ def smoke_train_12c(label):
                 torch.testing.assert_close(g.cpu(), cpu[name], atol=5e-4,
                                            rtol=5e-4)
                 g_err = max(g_err, (g.cpu() - cpu[name]).abs().max().item())
-            print(f"  12c {arch} smoke, remat {remat}: loss card "
+            print(f"  12c {arch} smoke, remat {remat}"
+                  + (f", moe_dispatch {dispatch}" if cfg.n_experts else "")
+                  + f": loss card "
                   f"{float(lc):.6f} cpu {float(lp):.6f}; {n_proj} projection "
                   f"weights, all nonzero, max abs diff to the CPU "
                   f"{g_err:.3e}; launches {launches} (forward only {once}) "
@@ -2328,6 +2478,153 @@ def smoke_train_12c(label):
         for n in total:
             total[n] += launches[n]
     return total
+
+
+def mixtral_13a(label):
+    """Phase 13a: Mixtral-8x7B served split at published widths, 16 of 32
+    layers, bf16 weights at rest (serve_full_width's checks), with its
+    peak device memory. Returns the kernels' launches."""
+    torch.cuda.reset_peak_memory_stats()
+    launches, split, params = serve_full_width("mixtral_8x7b", label)
+    print(f"  peak device memory (max_memory_allocated) "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; the bf16 "
+          f"weights {sum(t.numel() * t.element_size() for t in tree_leaves(params)) / 1e9:.2f} GB, shared by "
+          f"the split and unsplit engines [{label}]")
+    del split, params
+    torch.cuda.empty_cache()
+    return launches
+
+
+def two_unit_13b(arch, label):
+    """Phase 13b: one of Llama-3-8B, InternLM2-20B, Qwen2-VL-7B and
+    Phi-3.5-MoE at its published widths, 2 units (f32 weights), split at
+    unit 1: 8 prefills and 8 decode steps of the split engine in bf16
+    with every kernel call held to its plain version, exact B2 and B3
+    counts (2 a prefill, 2 a decode step), split == unsplit tokens; the
+    f32 prefill's and one f32 split decode step's logits, kernel path
+    against plain. Qwen2-VL also runs a 256-patch vision prefix (M-RoPE
+    grid ids) kernel against plain, and shows that text-only M-RoPE is
+    RoPE while the grid ids are not. Returns the kernels' launches."""
+    t0 = time.perf_counter()
+    cfg = configs.get(arch)
+    d, vocab, group = TWO_UNIT[arch]
+    check((cfg.d_model, cfg.vocab, cfg.n_heads // cfg.n_kv_heads,
+           cfg.head_dim) == (d, vocab, group, D128), f"{arch} widths")
+    published = cfg.n_layers
+    cfg = dataclasses.replace(cfg, n_layers=2 * len(cfg.pattern_unit()))
+    params = lm.init(cfg, torch.Generator(device="cuda").manual_seed(0))
+    rng = np.random.default_rng(1)
+    plens = rng.integers(32, 513, TWO_UNIT_REQUESTS)
+    prompts = [rng.integers(0, vocab, n).astype(np.int32) for n in plens]
+    reqs = lambda: [Request(rid=i, prompt=p, max_new_tokens=TWO_UNIT_STEPS)
+                    for i, p in enumerate(prompts)]
+    split = SplitDecodeEngine(cfg, params, cut_units=1, **SERVE_KW)
+    n_calls = {"prefill": 0, "step": 0}
+
+    def counted(what, fn):
+        def run(*a):
+            n_calls[what] += 1
+            return fn(*a)
+        return run
+    split._prefill = counted("prefill", split._prefill)
+    split._step = counted("step", split._step)
+    for w in WRAPPERS.values():
+        w.launches = 0
+    with torch.no_grad():
+        out, calls = with_checked_ops(lambda: split.submit_and_run(reqs()))
+    launches = {n: w.launches for n, w in WRAPPERS.items()}
+    want = {**dict.fromkeys(WRAPPERS, 0),
+            "flash_attn_fwd": 2 * TWO_UNIT_REQUESTS,
+            "decode_attn": 2 * TWO_UNIT_STEPS}
+    check(n_calls == {"prefill": TWO_UNIT_REQUESTS,
+                      "step": TWO_UNIT_STEPS} and launches == want,
+          f"13b {arch}: calls {n_calls}, launches {launches} != {want}")
+    check({n: c[0] for n, c in calls.items()} == {
+        "flash_attention": want["flash_attn_fwd"],
+        "decode_attention": want["decode_attn"]},
+        f"13b {arch}: checked calls {calls}")
+    check(all(len(t) == TWO_UNIT_STEPS for t in out.values()),
+          f"13b {arch}: tokens")
+    unsplit = DecodeEngine(cfg, params, **SERVE_KW).submit_and_run(reqs())
+    check(unsplit == out, f"13b {arch}: split and unsplit tokens differ")
+    del split
+
+    # f32 logits: the longest prompt's prefill, then one split decode step
+    # from its cache, kernel path against plain path
+    longest = torch.tensor(prompts[int(np.argmax(plens))][None, :],
+                           device="cuda")
+    pctx = Ctx(cfg=cfg, mode="prefill", act_dtype=torch.float32)
+    dctx = Ctx(cfg=cfg, mode="decode", act_dtype=torch.float32)
+    pa, pb = lm.split_serve_params(cfg, params, 1)
+    with torch.no_grad():
+        pk, _, caches = lm.forward(cfg, params, longest, ctx=pctx)
+        pp, _, _ = with_plain_ops(lambda: lm.forward(cfg, params, longest,
+                                                     ctx=pctx))
+        cache = lm.cache_from_prefill(cfg, caches, SERVE_KW["s_max"],
+                                      torch.float32)
+        cache0 = map_tree(torch.clone, cache)
+        tok = pk[:, -1:].argmax(-1).to(torch.int32)
+        pos = torch.tensor([longest.shape[1]], device="cuda")
+        dk, _, _ = lm.decode_step_split(cfg, pa, pb, cache, tok, pos,
+                                        ctx=dctx)
+        dp, _, _ = with_plain_ops(lambda: lm.decode_step_split(
+            cfg, pa, pb, cache0, tok, pos, ctx=dctx))
+    del caches, cache, cache0
+    p_err, p_max, p_agree = logits_close(pk, pp, f"13b {arch} f32 prefill",
+                                         PREFILL_F32_TOL_OF_MAX)
+    d_err, d_max, _ = logits_close(dk, dp, f"13b {arch} f32 decode",
+                                   PREFILL_F32_TOL_OF_MAX)
+    print(f"  13b {arch}: published widths (d {d}, {cfg.n_heads}/"
+          f"{cfg.n_kv_heads} heads of {D128}, group {group}, vocab {vocab}"
+          + (f", {cfg.n_experts} experts top-{cfg.top_k}" if cfg.n_experts
+             else "") + f"), reduced: n_layers {published} → "
+          f"{cfg.n_layers}, f32 weights "
+          f"{sum(t.numel() for t in tree_leaves(params)) * 4 / 1e9:.2f} GB; "
+          f"split@1 bf16: {TWO_UNIT_REQUESTS} prefills (prompts "
+          f"{plens.min()}-{plens.max()}) and {TWO_UNIT_STEPS} decode "
+          f"steps, launches {launches}, every call vs plain (calls, err, "
+          f"max |plain|) " + ", ".join(
+              f"{n} {c}x ({e:.3e}, {t:.3e})" for n, (c, e, t) in
+              calls.items()) + f"; split tokens == unsplit; f32 logits "
+          f"kernel vs plain: prefill of {longest.shape[1]} max abs err "
+          f"{p_err:.3e} of {p_max:.3e} (argmax equal {p_agree:.1%}), "
+          f"split decode step {d_err:.3e} of {d_max:.3e} (tol "
+          f"{PREFILL_F32_TOL_OF_MAX:g} of max) [{label}]")
+
+    if cfg.mrope:
+        # a 256-patch vision prefix: the grid ids of M-RoPE, kernel vs plain
+        F_ = cfg.frontend_len
+        toks = torch.tensor(rng.integers(0, vocab, (1, QWEN_PREFIX_S))
+                            .astype(np.int32), device="cuda")
+        front = torch.randn((1, F_, d), generator=torch.Generator(
+            device="cuda").manual_seed(2), device="cuda") * 0.02
+        tctx = Ctx(cfg=cfg, act_dtype=torch.float32)
+        rope_cfg = dataclasses.replace(cfg, mrope=False)
+        with torch.no_grad():
+            vk, _, _ = lm.forward(cfg, params, toks, ctx=tctx,
+                                  frontend_embed=front)
+            vp, _, _ = with_plain_ops(lambda: lm.forward(
+                cfg, params, toks, ctx=tctx, frontend_embed=front))
+            vr, _, _ = lm.forward(rope_cfg, params, toks, ctx=tctx,
+                                  frontend_embed=front)
+            tk, _, _ = lm.forward(cfg, params, toks, ctx=tctx)
+            tr, _, _ = lm.forward(rope_cfg, params, toks, ctx=tctx)
+        v_err, v_max, _ = logits_close(vk, vp, "13b vision prefix f32",
+                                       PREFILL_F32_TOL_OF_MAX)
+        grid = (vk - vr).abs().max().item()
+        check(grid > 1e-3 * v_max, f"13b: M-RoPE grid ids change nothing "
+              f"({grid})")
+        check(torch.equal(tk, tr), "13b: text-only M-RoPE is not RoPE")
+        print(f"  13b {arch}: {F_}-patch vision prefix + "
+              f"{QWEN_PREFIX_S - F_} tokens (grid {int(math.isqrt(F_))} x "
+              f"{int(math.isqrt(F_))}), f32 logits kernel vs plain max abs "
+              f"err {v_err:.3e} of {v_max:.3e}; M-RoPE grid ids vs plain "
+              f"RoPE on the same prefix {grid:.3e}; text-only M-RoPE == "
+              f"RoPE bit for bit [{label}]")
+    del params
+    torch.cuda.empty_cache()
+    print(f"  13b {arch}: {time.perf_counter() - t0:.1f} s [{label}]")
+    return launches
 
 
 def main() -> int:
@@ -2380,6 +2677,16 @@ def main() -> int:
             dtype, 512, gen, flush, H=SMOKE_H, KV=SMOKE_H, D=SMOKE_D))
         rows["decode_attn"].append(check_decode(
             dtype, gen, flush, H=SMOKE_H, KV=SMOKE_H, D=SMOKE_D))
+    for dtype in (torch.bfloat16, torch.float32):     # head dim 128
+        for h, kv in D128_HEADS:
+            rows["flash_attn_fwd"].append(check_prefill(
+                dtype, D128_S, gen, flush, H=h, KV=kv, D=D128))
+            rows["decode_attn"].append(check_decode(
+                dtype, gen, flush, H=h, KV=kv, D=D128))
+    rows["flash_attn_fwd"].append(check_prefill(     # Mixtral's window
+        torch.bfloat16, MIXTRAL_WINDOW_S, gen, flush, H=32, KV=8, D=D128,
+        window=MIXTRAL_WINDOW))
+    torch.cuda.empty_cache()
     for label, x in quant_cases(gen):
         for fused in (False, True):
             rows["split_quant"].append(check_quant(label, x, fused, flush))
@@ -2392,6 +2699,9 @@ def main() -> int:
             rows["mlstm_scan"].append(check_mlstm(dtype, B, S, gen, flush))
     for dtype in (torch.bfloat16, torch.float32):     # SmolLM's training
         rows["flash_attn_fwd"].append(check_flash_train(dtype, gen, flush))
+    for dtype in (torch.bfloat16, torch.float32):     # lse at head dim 128
+        rows["flash_attn_fwd"].append(check_flash_train(
+            dtype, gen, flush, B=1, S=D128_S, H=32, KV=8, D=D128))
     grad_rows = [check_scan_grads(kind, dtype, gen)
                  for kind in ("mamba_scan", "mlstm_scan")
                  for dtype in (torch.bfloat16, torch.float32)]
@@ -2512,7 +2822,18 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_done("phase 12b (the split ring, SmolLM-360M)")
     paths["smoke_lm_train"] = smoke_train_12c(smi)
-    phase_done("phase 12c (Zamba2 and xLSTM smoke steps)")
+    phase_done("phase 12c (Zamba2, xLSTM, Mixtral and Phi-3.5-MoE smoke "
+               "steps)")
+    t13 = time.perf_counter()
+    paths["mixtral_8x7b"] = mixtral_13a(smi)
+    phase_done("phase 13a (Mixtral-8x7B, 16 of 32 layers)")
+    paths["two_unit_d128"] = {n: 0 for n in WRAPPERS}
+    for arch in TWO_UNIT:
+        for n, c in two_unit_13b(arch, smi).items():
+            paths["two_unit_d128"][n] += c
+    phase_done(f"phase 13b (Llama-3-8B, InternLM2-20B, Qwen2-VL-7B, "
+               f"Phi-3.5-MoE at 2 units); phase 13 took "
+               f"{time.perf_counter() - t13:.1f} s")
     print(f"launches on the main paths (B1: counted by its wrapper at each "
           f"launch; the device loop is eager, no graph): {paths}")
     launches = {n: sum(p.get(n, 0) for p in paths.values()) for n in WRAPPERS}

@@ -8,17 +8,19 @@ copy over unchanged, and its helpers, the parameter counts
 (``block_param_count``, ``param_count`` and their active variants,
 which ``core.splitting.lm_plan`` reads) with the same float arithmetic.
 
-Block kinds the port serves: ``attn`` (GQA attention + MLP), ``mamba2``
-(Mamba-2 SSD block, no separate MLP), ``shared_attn`` (Zamba2's one
-attention + MLP block whose weights every occurrence shares), and
-xLSTM's ``mlstm`` (matrix memory) and ``slstm`` (scalar recurrence).
+Block kinds the port serves: ``attn`` (GQA attention + MLP), ``moe``
+(GQA attention + top-k MoE MLP), ``mamba2`` (Mamba-2 SSD block, no
+separate MLP), ``shared_attn`` (Zamba2's one attention + MLP block whose
+weights every occurrence shares), and xLSTM's ``mlstm`` (matrix memory)
+and ``slstm`` (scalar recurrence). Whisper's encoder-decoder
+(``enc_dec``) is copied but not served yet.
 """
 from __future__ import annotations
 
 import dataclasses
 import importlib
 import math
-from typing import List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 
 @dataclasses.dataclass(frozen=True)
@@ -151,6 +153,13 @@ class ArchConfig:
         return total
 
 
+ASSIGNED = [
+    "xlstm_1_3b", "granite_3_2b", "llama3_8b", "smollm_360m", "internlm2_20b",
+    "phi35_moe", "mixtral_8x7b", "qwen2_vl_7b", "zamba2_1_2b", "whisper_small",
+]
+
+PAPER_MODELS = ["resnet18", "autoencoder"]
+
 
 def get(name: str) -> ArchConfig:
     mod = importlib.import_module(f"repro_torch.configs.{name.replace('-', '_')}")
@@ -160,3 +169,7 @@ def get(name: str) -> ArchConfig:
 def get_smoke(name: str) -> ArchConfig:
     mod = importlib.import_module(f"repro_torch.configs.{name.replace('-', '_')}")
     return mod.smoke_config()
+
+
+def all_assigned() -> Dict[str, ArchConfig]:
+    return {n: get(n) for n in ASSIGNED}

@@ -8,7 +8,8 @@
 // optional sliding window, fully masked KV tiles skipped, the ragged Skv
 // tail masked. Softmax and sums in f32, m starting at -1e30, masked
 // scores giving p = 0 without taking their exp, the row sum divided as
-// acc / max(l, 1e-30), output in the input type. D = 16, 32 or 64.
+// acc / max(l, 1e-30), output in the input type. D = 16, 32, 64 or
+// 128.
 // Optionally (a non-null lse) each row's log-sum-exp, f32 (B,H,Sq), in
 // natural-log units: lse = m + log(max(l, 1e-30)), as the reference's
 // _chunked_attention_fwd_impl returns it for the backward; a row with no
@@ -42,17 +43,24 @@
 // window edge or the Skv tail run the masked variant of the tile code,
 // compiled separately. Variants tried on the card and found slower: one
 // group, four groups, a deeper ring, 32 q rows a warp (255 registers,
-// fewer blocks per SM).
+// fewer blocks per SM). Up to D = 64 two blocks share an SM (128
+// registers a thread); at D = 128 the accumulators (64 f32 a lane), Q's
+// fragments (32) and the scores (32) need more than 128 registers, and
+// the ring's 156,672 bytes of shared memory leave room for one block, so
+// that head dim runs one block an SM with up to 255 registers.
 // Grouping the q heads of a KV head into one block was left out: at
 // SmolLM's 15 heads it would cut 120 blocks to 40 on 132 SMs.
 //
 // f32 (the f32 logits checks and tests only): CUDA-core FMAs, exact in
 // f32 (tensor cores would need three bf16 products per f32 product to
 // hold 2e-5). One block of 256 threads per (64-row q tile, q head,
-// batch); four threads share a query row, each scoring 16 of the 64 keys
-// of a tile and owning D/4 output columns; K and V tiles staged in shared
-// memory as f32, probabilities moved between the four threads by warp
-// shuffles.
+// batch); four threads share a query row, each scoring a quarter of the
+// keys of a tile and owning D/4 output columns; K and V tiles staged in
+// dynamic shared memory as f32, probabilities moved between the four
+// threads by warp shuffles. Up to D = 64 a tile holds 64 keys and each
+// thread keeps its query row in registers; at D = 128 the row would take
+// 128 registers and a 64-key tile 66 KB, so a tile holds 32 keys and the
+// query tile sits in shared memory beside it (65,920 bytes in all).
 #include <type_traits>
 
 #include "common.cuh"
@@ -61,8 +69,16 @@
 namespace {
 
 constexpr int BQ = 64;         // query rows per block
-constexpr int BK = 64;         // keys per shared-memory tile
+constexpr int BK = 64;         // keys per shared-memory tile (bf16; f32 to D 64)
 constexpr int THREADS = 256;   // four threads per query row
+
+// the f32 kernel's key tile, whether its query tile lives in shared
+// memory (else in registers), and its dynamic shared memory in bytes
+__host__ __device__ constexpr int fma_bk(int D) { return D > 64 ? 32 : BK; }
+__host__ __device__ constexpr bool fma_qs(int D) { return D > 64; }
+__host__ __device__ constexpr int fma_smem(int D) {
+  return (fma_bk(D) * (2 * D + 1) + (fma_qs(D) ? BQ * (D + 1) : 0)) * 4;
+}
 
 template <typename T, int D>
 __global__ void __launch_bounds__(THREADS)
@@ -72,15 +88,21 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  int causal, int window, float scale) {
   using V16 = repro::Vec16<T>;
   constexpr int VEC = V16::N;
+  constexpr int BKF = fma_bk(D);       // keys per tile
+  constexpr bool QS = fma_qs(D);       // query tile in shared memory
   constexpr int DJ = D / 4;            // output columns per thread
-  constexpr int CJ = BK / 4;           // key columns per thread
-  constexpr int CHUNKS = BK * D / VEC; // 16-byte loads per K (or V) tile
+  constexpr int CJ = BKF / 4;          // key columns per thread
+  constexpr int CHUNKS = BKF * D / VEC;  // 16-byte loads per K (or V) tile
   static_assert(D % VEC == 0 && D % 4 == 0, "head_dim");
   static_assert(CHUNKS % THREADS == 0 || THREADS % CHUNKS == 0,
                 "tile load split");
+  static_assert(BQ * D / VEC % THREADS == 0, "query tile load split");
 
-  __shared__ float ks[BK][D + 1];
-  __shared__ float vs[BK][D];
+  extern __shared__ float smem_fma[];
+  float (*ks)[D + 1] = reinterpret_cast<float (*)[D + 1]>(smem_fma);
+  float (*vs)[D] = reinterpret_cast<float (*)[D]>(smem_fma + BKF * (D + 1));
+  float (*qs)[D + 1] =                 // [BQ][D + 1], used when QS
+      reinterpret_cast<float (*)[D + 1]>(smem_fma + BKF * (2 * D + 1));
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -96,21 +118,37 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const T* vp = v + ((size_t)b * KV + kvh) * Skv * D;
   T* op = o + ((size_t)b * H + h) * Sq * D;
 
-  float qr[D];
+  float qr[QS ? 1 : D];
+  if constexpr (QS) {                  // the block's rows, zero past Sq
 #pragma unroll
-  for (int c = 0; c < D / VEC; ++c) {
-    uint4 raw = make_uint4(0u, 0u, 0u, 0u);
-    if (qpos < Sq)
-      raw = *reinterpret_cast<const uint4*>(qp + (size_t)qpos * D + c * VEC);
-    V16::unpack(raw, qr + c * VEC);
+    for (int it = 0; it < BQ * D / VEC / THREADS; ++it) {
+      const int chunk = tid + it * THREADS;
+      const int row = chunk / (D / VEC), col = (chunk % (D / VEC)) * VEC;
+      uint4 raw = make_uint4(0u, 0u, 0u, 0u);
+      if (q_start + row < Sq)
+        raw = *reinterpret_cast<const uint4*>(
+            qp + (size_t)(q_start + row) * D + col);
+      float f[VEC];
+      V16::unpack(raw, f);
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) qs[row][col + e] = f[e];
+    }
+  } else {
+#pragma unroll
+    for (int c = 0; c < D / VEC; ++c) {
+      uint4 raw = make_uint4(0u, 0u, 0u, 0u);
+      if (qpos < Sq)
+        raw = *reinterpret_cast<const uint4*>(qp + (size_t)qpos * D + c * VEC);
+      V16::unpack(raw, qr + c * VEC);
+    }
   }
 
   // KV tiles in the band of this q tile.
   const int q_last = min(q_start + BQ, Sq) - 1;
-  int kt_hi = (Skv + BK - 1) / BK;
-  if (causal) kt_hi = min(kt_hi, q_last / BK + 1);
+  int kt_hi = (Skv + BKF - 1) / BKF;
+  if (causal) kt_hi = min(kt_hi, q_last / BKF + 1);
   int kt_lo = 0;
-  if (window > 0) kt_lo = max(0, (q_start - window + 1) / BK);
+  if (window > 0) kt_lo = max(0, (q_start - window + 1) / BKF);
 
   float m = repro::kNegBig, l = 0.f;
   float acc[DJ];
@@ -118,7 +156,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int i = 0; i < DJ; ++i) acc[i] = 0.f;
 
   for (int kt = kt_lo; kt < kt_hi; ++kt) {
-    const int k_start = kt * BK;
+    const int k_start = kt * BKF;
     __syncthreads();                   // previous tile fully consumed
 #pragma unroll
     for (int it = 0; it < (CHUNKS + THREADS - 1) / THREADS; ++it) {
@@ -143,19 +181,27 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
     __syncthreads();
 
-    // scores of this thread's 16 keys; masked keys are -inf
+    // scores of this thread's CJ keys (key c4 + 4j), each summed over d
+    // in order; masked keys are -inf
+    float dot[CJ];
+#pragma unroll
+    for (int j = 0; j < CJ; ++j) dot[j] = 0.f;
+#pragma unroll
+    for (int d = 0; d < D; ++d) {
+      float qd;
+      if constexpr (QS) qd = qs[r][d];
+      else qd = qr[d];
+#pragma unroll
+      for (int j = 0; j < CJ; ++j) dot[j] = fmaf(qd, ks[c4 + 4 * j][d], dot[j]);
+    }
     float s[CJ];
     float mt = repro::kNegBig;
 #pragma unroll
     for (int j = 0; j < CJ; ++j) {
-      const int c = c4 + 4 * j;
-      const int kpos = k_start + c;
-      float dot = 0.f;
-#pragma unroll
-      for (int d = 0; d < D; ++d) dot = fmaf(qr[d], ks[c][d], dot);
+      const int kpos = k_start + c4 + 4 * j;
       const bool ok = kpos < Skv && (!causal || kpos <= qpos) &&
                       (window <= 0 || kpos > qpos - window);
-      s[j] = ok ? dot * scale : -INFINITY;
+      s[j] = ok ? dot[j] * scale : -INFINITY;
       mt = fmaxf(mt, s[j]);
     }
     mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 1));
@@ -211,8 +257,11 @@ using bf16 = __nv_bfloat16;
 // dynamic shared memory of the bf16 kernel: Q and the ring of K/V tiles
 constexpr int mma_smem(int D) { return (BQ + 2 * NSLOT * BK) * (D + 8) * 2; }
 
+// blocks an SM the bf16 kernel is compiled for (module header)
+__host__ __device__ constexpr int mma_min_blocks(int D) { return D > 64 ? 1 : 2; }
+
 template <int D>
-__global__ void __launch_bounds__(MMA_THREADS, 2)
+__global__ void __launch_bounds__(MMA_THREADS, mma_min_blocks(D))
 flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      const bf16* __restrict__ v, bf16* __restrict__ o,
                      float* __restrict__ lse, int H, int KV, int Sq, int Skv,
@@ -484,7 +533,10 @@ template <int D>
 void launch_fma(const void* q, const void* k, const void* v, void* o,
                 float* lse, const dim3& grid, int H, int KV, int Sq, int Skv,
                 int causal, int window, float scale, cudaStream_t st) {
-  flash_fwd_kernel<float, D><<<grid, THREADS, 0, st>>>(
+  cudaFuncSetAttribute(flash_fwd_kernel<float, D>,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       fma_smem(D));
+  flash_fwd_kernel<float, D><<<grid, THREADS, fma_smem(D), st>>>(
       (const float*)q, (const float*)k, (const float*)v, (float*)o, lse, H,
       KV, Sq, Skv, causal, window, scale);
 }
@@ -499,12 +551,15 @@ extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v,
                               int Sq, int Skv,
                               int D, int causal, int window, float scale,
                               int dtype, void* stream) {
-  if (D != 16 && D != 32 && D != 64) return (int)cudaErrorInvalidValue;
+  if (D != 16 && D != 32 && D != 64 && D != 128)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const dim3 grid((Sq + BQ - 1) / BQ, H, B);
   auto go = dtype == 1
-      ? (D == 16 ? launch_mma<16> : D == 32 ? launch_mma<32> : launch_mma<64>)
-      : (D == 16 ? launch_fma<16> : D == 32 ? launch_fma<32> : launch_fma<64>);
+      ? (D == 16 ? launch_mma<16> : D == 32 ? launch_mma<32>
+         : D == 64 ? launch_mma<64> : launch_mma<128>)
+      : (D == 16 ? launch_fma<16> : D == 32 ? launch_fma<32>
+         : D == 64 ? launch_fma<64> : launch_fma<128>);
   go(q, k, v, o, static_cast<float*>(lse), grid, H, KV, Sq, Skv, causal,
      window, scale, st);
   return (int)cudaGetLastError();

@@ -26,7 +26,7 @@ import torch
 from repro_torch.kernels import _build, ref
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (16, 32, 64)
+HEAD_DIMS = (16, 32, 64, 128)
 NEG_INF = ref.NEG_INF     # the lse of a row that sees no key
 BLOCK = 512               # the backward's q and k blocks (Ctx.block_q/_k)
 

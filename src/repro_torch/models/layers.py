@@ -1,6 +1,7 @@
-"""Model layers: RMSNorm, RoPE, GQA attention (train/prefill and
-self-attention decode), the SwiGLU/GELU MLP, the Mamba-2 block and
-xLSTM's mLSTM and sLSTM blocks.
+"""Model layers: RMSNorm, RoPE and Qwen2-VL's M-RoPE, GQA attention
+(train/prefill and self-attention decode), the SwiGLU/GELU MLP, the
+top-k MoE MLP with capacity dispatch, the Mamba-2 block and xLSTM's
+mLSTM and sLSTM blocks.
 
 Each layer is a (spec_*, apply_*) pair as in ``repro/models/layers.py``.
 Compute runs in the activation dtype; weights are cast to it at each
@@ -10,6 +11,7 @@ attention and scan math is f32 inside the kernels.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Dict, Optional, Tuple
 
 import torch
@@ -29,8 +31,8 @@ class Ctx:
     card always takes the Hopper kernels, the CPU their plain versions);
     ``mesh`` and ``rules`` (sharding is not ported: one card);
     ``attn_compute_dtype`` (the port's attention math is f32 already);
-    ``enc_out`` and ``moe_dispatch`` (cross-attention and MoE are not
-    ported yet)."""
+    ``enc_out`` (cross-attention is not ported yet). ``moe_dispatch``
+    picks the MoE layout (:func:`apply_moe`)."""
 
     cfg: Any
     mesh: Any = None
@@ -65,25 +67,61 @@ def rmsnorm(p, x, eps: float = 1e-5):
 
 
 # --------------------------------------------------------------------------
-# RoPE.
+# RoPE / M-RoPE.
 # --------------------------------------------------------------------------
+
+def _rope_freqs(half: int, theta: float, device):
+    exps = -torch.arange(0, half, dtype=torch.float32, device=device) / half
+    return torch.pow(torch.tensor(theta, dtype=torch.float32, device=device),
+                     exps)
+
 
 def rope_tables(positions, dim: int, theta: float):
     """positions: (...,) int -> cos/sin (..., dim/2) fp32."""
-    half = dim // 2
-    exps = -torch.arange(0, half, dtype=torch.float32,
-                         device=positions.device) / half
-    freqs = torch.pow(torch.tensor(theta, dtype=torch.float32,
-                                   device=positions.device), exps)
-    ang = positions.float()[..., None] * freqs
+    ang = positions.float()[..., None] * _rope_freqs(dim // 2, theta,
+                                                     positions.device)
     return torch.cos(ang), torch.sin(ang)
 
 
+def mrope_tables(pos_thw, dim: int, theta: float,
+                 sections=(0.25, 0.375, 0.375)):
+    """Qwen2-VL M-RoPE: the rotary dims split into (t, h, w) sections,
+    each rotated by its own position id.
+
+    pos_thw: (3, ...) int position ids. Returns cos/sin (..., dim/2)."""
+    half = dim // 2
+    n_t, n_h = int(half * sections[0]), int(half * sections[1])
+    sec = torch.cat([torch.zeros(n_t, dtype=torch.long),
+                     torch.ones(n_h, dtype=torch.long),
+                     torch.full((half - n_t - n_h,), 2, dtype=torch.long)])
+    # per rotary index j, position = pos_thw[sec[j]]
+    pos_per_freq = pos_thw.movedim(0, -1)[..., sec.to(pos_thw.device)]
+    ang = pos_per_freq.float() * _rope_freqs(half, theta, pos_thw.device)
+    return torch.cos(ang), torch.sin(ang)
+
+
+def text_mrope_positions(batch: int, seq: int, frontend_len: int,
+                         offset=0, device=None):
+    """(3, B, S) ids: the vision prefix gets (t=0, h=i//g, w=i%g) grid
+    ids on a g x g grid, g = isqrt(frontend_len); text positions repeat
+    their index in all three (so text-only M-RoPE is RoPE)."""
+    idx = torch.arange(seq, device=device) + offset
+    vis = idx < frontend_len
+    g = max(int(math.sqrt(max(frontend_len, 1))), 1)
+    ids = torch.stack([torch.where(vis, 0, idx),
+                       torch.where(vis, idx // g, idx),
+                       torch.where(vis, idx % g, idx)])       # (3, S)
+    return ids[:, None, :].expand(3, batch, seq)
+
+
 def apply_rope(x, cos, sin):
-    """x: (B, S, H, D); cos/sin: (S, D/2) or (B, D/2) (decode)."""
+    """x: (B, S, H, D); cos/sin: (S, D/2), (B, D/2) (decode) or
+    (B, S, D/2) (M-RoPE)."""
     half = x.shape[-1] // 2
     x1, x2 = x[..., :half].float(), x[..., half:].float()
-    if cos.shape[0] == x.shape[1]:                          # (S, half)
+    if cos.dim() == 3:                                      # (B, S, half)
+        cos, sin = cos[:, :, None, :], sin[:, :, None, :]
+    elif cos.shape[0] == x.shape[1]:                        # (S, half)
         cos, sin = cos[None, :, None, :], sin[None, :, None, :]
     else:                                                   # (B, half)
         cos, sin = cos[:, None, None, :], sin[:, None, None, :]
@@ -165,6 +203,95 @@ def apply_mlp(p, x, ctx: Ctx):
     else:                             # jax.nn.gelu defaults to the tanh form
         h = F.gelu(h.float(), approximate="tanh").to(dt)
     return h @ p["wo"].to(dt)
+
+
+# --------------------------------------------------------------------------
+# Top-k MoE with capacity-based dispatch (GShard-style, static shapes).
+# --------------------------------------------------------------------------
+
+def spec_moe(cfg) -> Dict:
+    d, f, E = cfg.d_model, cfg.d_ff, cfg.n_experts
+    return {
+        "router": ParamSpec((d, E), scale=0.02),
+        "wi": ParamSpec((E, d, 2 * f)),
+        "wo": ParamSpec((E, f, d)),
+    }
+
+
+def _route(probs, k: int, E: int, C: int):
+    """Top-k routing over the last axis of ``probs`` (..., T, E), tokens
+    in order along T: (gates renormalized over the top k, expert ids,
+    keep, buffer slot), the last three (..., T, k). A (token, choice)
+    takes its place in its expert's buffer by a cumulative count in
+    (token, choice) order; past the capacity C it goes to the trash row
+    E * C. ``torch.topk`` orders equal probabilities as it likes where
+    ``jax.lax.top_k`` takes the lower expert first; with learned or
+    random weights exact ties do not occur."""
+    gate, eidx = torch.topk(probs, k, dim=-1)
+    gate = gate / gate.sum(-1, keepdim=True).clamp(min=1e-9)
+    *lead, T, _ = eidx.shape
+    flat = F.one_hot(eidx, E).reshape(*lead, T * k, E)
+    pos = flat.cumsum(dim=-2) - flat
+    pos = (pos * flat).sum(-1).reshape(*lead, T, k)
+    keep = pos < C
+    slot = torch.where(keep, eidx * C + pos, E * C)
+    return gate, eidx, keep, slot
+
+
+def _experts(p, buf, dt):
+    """The experts' SwiGLU on their buffers (..., E, C, d)."""
+    h = torch.einsum("...ecd,edf->...ecf", buf, p["wi"].to(dt))
+    g, u = h.chunk(2, dim=-1)
+    h = F.silu(g.float()).to(dt) * u
+    return torch.einsum("...ecf,efd->...ecd", h, p["wo"].to(dt))
+
+
+def _switch_aux(probs, eidx, E: int):
+    """The Switch load-balancing term E * sum(mean(probs) * mean(one_hot
+    of the first choice)), the means over every token."""
+    me = probs.reshape(-1, E).mean(0)
+    ce = F.one_hot(eidx[..., 0].reshape(-1), E).float().mean(0)
+    return E * (me * ce).sum()
+
+
+def apply_moe(p, x, ctx: Ctx):
+    """Token-dropping top-k dispatch (the reference's ``apply_moe``), in
+    one of two layouts (``ctx.moe_dispatch``):
+
+    * ``global``: one (E, C, d) buffer for all B*S tokens,
+      C = ceil(B*S*k/E * capacity_factor);
+    * ``batch_local``: a (B, E, C, d) buffer, each batch row dispatched
+      on its own, C = ceil(S*k/E * capacity_factor).
+
+    Dropped (token, choice) pairs contribute zero (``gate * keep``).
+    Returns (y (B, S, d), the Switch aux term, f32). The expert products
+    are batched matmuls over the buffer, as the reference's einsums."""
+    cfg = ctx.cfg
+    B, S, d = x.shape
+    E, k = cfg.n_experts, cfg.top_k
+    local = ctx.moe_dispatch == "batch_local"
+    if not local and ctx.moe_dispatch != "global":
+        raise ValueError(f"moe_dispatch must be 'global' or 'batch_local', "
+                         f"got {ctx.moe_dispatch!r}")
+    C = max(1, int(math.ceil((S if local else B * S) * k / E
+                             * cfg.capacity_factor)))
+    dt = x.dtype
+    xt = x if local else x.reshape(1, B * S, d)          # (R, T, d)
+    R, T = xt.shape[0], xt.shape[1]
+
+    logits = (xt @ p["router"].to(dt)).float()            # (R, T, E)
+    probs = torch.softmax(logits, dim=-1)
+    gate, eidx, keep, slot = _route(probs, k, E, C)
+
+    xrep = xt.repeat_interleave(k, dim=1)                 # (R, T*k, d)
+    idx = slot.reshape(R, T * k, 1).expand(R, T * k, d)
+    buf = torch.zeros((R, E * C + 1, d), dtype=dt, device=x.device)
+    buf = buf.scatter_add(1, idx, xrep)[:, :-1].reshape(R, E, C, d)
+    out_buf = _experts(p, buf, dt).reshape(R, E * C, d)
+    out_buf = torch.cat([out_buf, out_buf.new_zeros((R, 1, d))], dim=1)
+    y = out_buf.gather(1, idx).reshape(R, T, k, d)
+    y = (y * (gate * keep).to(dt)[..., None]).sum(dim=2)
+    return y.reshape(B, S, d), _switch_aux(probs, eidx, E)
 
 
 # --------------------------------------------------------------------------

@@ -1,7 +1,8 @@
 """The LM: embedding -> stacked pattern units -> norm -> tied or untied
 head. The port of ``repro/models/lm.py`` for the block kinds ``attn``,
-``mamba2``, ``shared_attn``, ``mlstm`` and ``slstm`` (dense models,
-Zamba2 and xLSTM).
+``moe``, ``mamba2``, ``shared_attn``, ``mlstm`` and ``slstm`` (dense
+models, the MoE models, Qwen2-VL's backbone with M-RoPE and its vision
+prefix, Zamba2 and xLSTM). Whisper's encoder-decoder is not ported yet.
 
 Parameters are nested dicts of tensors in the reference's tree layout:
 ``units`` holds one entry per non-shared block of the pattern unit,
@@ -29,8 +30,8 @@ parameter requires grad under grad mode. The reference's ``unroll`` (its
 
 Entry points:
   init / abstract_params            parameter trees
-  forward                           logits for train/prefill (+ caches)
-  loss                              next-token CE (+ the MoE aux term, 0)
+  forward                           logits, MoE aux, caches (train/prefill)
+  loss                              next-token CE + aux_weight * MoE aux
   init_cache / cache_from_prefill   decode caches
   decode_step                       one token vs the caches
   split_serve_params / decode_step_split   the same, cut at a unit
@@ -50,7 +51,7 @@ from repro_torch.models import layers as L
 from repro_torch.models.param import ParamSpec, init_params, map_tree
 from repro_torch.utils.treeutil import tree_leaves
 
-SERVED_KINDS = ("attn", "mamba2", "shared_attn", "mlstm", "slstm")
+SERVED_KINDS = ("attn", "moe", "mamba2", "shared_attn", "mlstm", "slstm")
 # Recurrent block kinds: the cache entry (and parameter sub-tree) name,
 # and the block's spec and apply functions.
 RECURRENT = {"mamba2": ("mamba", L.spec_mamba2, L.apply_mamba2),
@@ -60,18 +61,18 @@ RECURRENT = {"mamba2": ("mamba", L.spec_mamba2, L.apply_mamba2),
 
 def _check_served(cfg):
     unit = cfg.pattern_unit()
-    if not set(unit) <= set(SERVED_KINDS) or cfg.enc_dec or cfg.mrope:
+    if not set(unit) <= set(SERVED_KINDS) or cfg.enc_dec:
         raise NotImplementedError(
             f"{cfg.name}: the port serves block kinds {SERVED_KINDS} without "
-            f"enc-dec or M-RoPE (pattern {unit})")
+            f"enc-dec (pattern {unit})")
 
 
-def _check_frontend(frontend_embed, enc_frames):
-    """The vision and audio front ends belong to the architectures
-    :func:`_check_served` refuses; given anyway, they raise."""
-    if frontend_embed is not None or enc_frames is not None:
-        raise NotImplementedError("frontend_embed / enc_frames: the vision "
-                                  "and audio front ends are not ported")
+def _check_frontend(enc_frames):
+    """The audio front end belongs to the enc-dec architecture
+    :func:`_check_served` refuses; given anyway, it raises."""
+    if enc_frames is not None:
+        raise NotImplementedError("enc_frames: the audio front end (the "
+                                  "encoder) is not ported")
 
 
 # --------------------------------------------------------------------------
@@ -86,7 +87,7 @@ def _block_spec(cfg, kind: str) -> Dict:
     spec = {"norm1": L.spec_rmsnorm(d), "attn": L.spec_attention(cfg)}
     if cfg.d_ff:
         spec["norm2"] = L.spec_rmsnorm(d)
-        spec["mlp"] = L.spec_mlp(cfg)
+        spec["mlp"] = L.spec_moe(cfg) if kind == "moe" else L.spec_mlp(cfg)
     return spec
 
 
@@ -140,7 +141,8 @@ def _stack(trees):
 # --------------------------------------------------------------------------
 
 def _apply_block(cfg, kind: str, p, x, ctx: L.Ctx, cache):
-    """Pre-norm residual block. Returns (x, new cache dict)."""
+    """Pre-norm residual block. Returns (x, new cache dict, MoE aux or
+    None)."""
     cache = cache or {}
     new_cache: Dict[str, Any] = {}
     xn = L.rmsnorm(p["norm1"], x, cfg.norm_eps)
@@ -150,38 +152,57 @@ def _apply_block(cfg, kind: str, p, x, ctx: L.Ctx, cache):
         x = x + h
         if nc is not None:
             new_cache[sub] = nc
-        return x, new_cache
+        return x, new_cache, None
     h, nc = L.apply_attention(p["attn"], xn, ctx, causal=cfg.causal,
                               window=cfg.window, cache=cache.get("attn"))
     x = x + h
     if nc is not None:
         new_cache["attn"] = nc
+    aux = None
     if cfg.d_ff:
-        x = x + L.apply_mlp(p["mlp"], L.rmsnorm(p["norm2"], x, cfg.norm_eps),
-                            ctx)
-    return x, new_cache
+        xn = L.rmsnorm(p["norm2"], x, cfg.norm_eps)
+        if kind == "moe":
+            h, aux = L.apply_moe(p["mlp"], xn, ctx)
+        else:
+            h = L.apply_mlp(p["mlp"], xn, ctx)
+        x = x + h
+    return x, new_cache, aux
 
 
 def _apply_unit(cfg, unit_params, shared_params, x, ctx: L.Ctx, unit_cache):
     """The blocks of one pattern unit in order; ``shared_attn`` positions
-    use ``shared_params``. Returns (x, caches keyed like the unit)."""
+    use ``shared_params``. Returns (x, caches keyed like the unit, the
+    unit's MoE aux summed over its blocks, f32, or None without MoE)."""
     new_caches = {}
+    aux = None
     for j, kind in enumerate(cfg.pattern_unit()):
         key = f"{j}:{kind}"
         p = shared_params if kind == "shared_attn" else unit_params[key]
         c = unit_cache.get(key) if unit_cache else None
-        x, nc = _apply_block(cfg, kind, p, x, ctx, c)
+        x, nc, a = _apply_block(cfg, kind, p, x, ctx, c)
+        if a is not None:
+            aux = a if aux is None else aux + a
         if nc:
             new_caches[key] = nc
-    return x, new_caches
+    return x, new_caches, aux
 
 
 def _embed_tokens(params, tokens, act_dtype):
     return params["embed"][tokens].to(act_dtype)
 
 
-def _rope_for(cfg, seq: int, device, positions=None):
-    """cos/sin tables. positions: (B,) decode positions or None (0..S)."""
+def _rope_for(cfg, batch: int, seq: int, device, positions=None,
+              frontend_len: int = 0):
+    """cos/sin tables. positions: (B,) decode positions or None (0..S).
+    M-RoPE: (3, B, S) ids with a vision prefix of ``frontend_len`` grid
+    positions, or each decode position in all three sections."""
+    if cfg.mrope:
+        if positions is None:
+            ids = L.text_mrope_positions(batch, seq, frontend_len,
+                                         device=device)
+        else:
+            ids = positions[None, :, None].expand(3, batch, 1)
+        return L.mrope_tables(ids, cfg.head_dim, cfg.rope_theta)
     if positions is None:
         positions = torch.arange(seq, device=device)
     return L.rope_tables(positions, cfg.head_dim, cfg.rope_theta)
@@ -217,30 +238,42 @@ def forward(cfg, params, tokens, *, ctx: L.Ctx, frontend_embed=None,
             enc_frames=None, remat: str = "full", unroll: int = 1):
     """Full-sequence logits. mode = train (no cache) or prefill.
 
-    Returns (logits fp32, aux_loss (0: no MoE), caches_or_None) with the
-    caches stacked along a leading unit axis (module docstring).
-    ``remat`` (none | full | dots) sets what the backward recomputes;
-    ``unroll`` is accepted and ignored.
+    Returns (logits fp32, MoE aux summed over blocks and units (0 without
+    MoE), caches_or_None) with the caches stacked along a leading unit
+    axis (module docstring). A vision config (``frontend == "vision"``)
+    given ``frontend_embed`` (B, frontend_len, d) takes it in place of
+    the first ``frontend_len`` token embeddings, and its M-RoPE gives
+    those positions grid ids. ``remat`` (none | full | dots) sets what
+    the backward recomputes; ``unroll`` is accepted and ignored.
     """
     _check_served(cfg)
-    _check_frontend(frontend_embed, enc_frames)
+    _check_frontend(enc_frames)
     if remat not in REMAT:
         raise ValueError(f"remat must be one of {REMAT}, got {remat!r}")
     B, S = tokens.shape
     x = _embed_tokens(params, tokens, ctx.act_dtype)
-    ctx = dataclasses.replace(ctx, rope=_rope_for(cfg, S, tokens.device))
+    n_front = 0
+    if cfg.frontend == "vision" and frontend_embed is not None:
+        n_front = cfg.frontend_len
+        x = torch.cat([frontend_embed.to(ctx.act_dtype), x[:, n_front:]],
+                      dim=1)
+    ctx = dataclasses.replace(ctx, rope=_rope_for(
+        cfg, B, S, tokens.device, frontend_len=n_front))
     shared = params.get("shared")
     remat = remat if _trains(params) else "none"
     per_unit = []
+    aux = torch.zeros((), device=x.device)
     for u in range(_n_units(params)):
         args = (cfg, _unit(params["units"], u), shared, x, ctx, None)
-        x, caches = (_apply_unit(*args) if remat == "none"
-                     else _remat_unit(remat, _apply_unit, *args))
+        x, caches, a = (_apply_unit(*args) if remat == "none"
+                        else _remat_unit(remat, _apply_unit, *args))
         per_unit.append(caches)
+        if a is not None:
+            aux = aux + a
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
     logits = _head(cfg, params, x)
     caches = _stack(per_unit) if ctx.mode == "prefill" else None
-    return logits, torch.zeros((), device=x.device), caches
+    return logits, aux, caches
 
 
 def _head(cfg, params, x):
@@ -255,13 +288,17 @@ def _head(cfg, params, x):
 def loss(cfg, params, tokens, labels, *, ctx: L.Ctx, frontend_embed=None,
          enc_frames=None, remat: str = "full", aux_weight: float = 0.01,
          unroll: int = 1):
-    """Next-token CE (labels = targets aligned to positions; -1 = pad).
+    """Next-token CE (labels = targets aligned to positions; -1 = pad;
+    a vision config's first ``frontend_len`` positions are left out).
     Returns (ce + aux_weight * aux, {"ce", "aux", "ntok"})."""
     logits, aux, _ = forward(cfg, params, tokens, ctx=ctx,
                              frontend_embed=frontend_embed,
                              enc_frames=enc_frames, remat=remat,
                              unroll=unroll)
     mask = labels >= 0
+    if cfg.frontend == "vision":
+        pos = torch.arange(labels.shape[1], device=labels.device)[None, :]
+        mask = mask & (pos >= cfg.frontend_len)
     labels_c = labels.clamp(min=0).long()
     lse = torch.logsumexp(logits, dim=-1)
     ll = logits.gather(-1, labels_c[..., None])[..., 0]
@@ -338,15 +375,16 @@ def _decode_units(cfg, params, cache, x, ctx):
     updating each unit's slice of ``cache`` in place."""
     shared = params.get("shared")
     for u in range(_n_units(params)):
-        x, _ = _apply_unit(cfg, _unit(params["units"], u), shared, x, ctx,
-                           _unit(cache, u))
+        x, _, _ = _apply_unit(cfg, _unit(params["units"], u), shared, x, ctx,
+                              _unit(cache, u))
     return x
 
 
 def _decode_ctx(cfg, ctx, positions):
     return dataclasses.replace(
         ctx, mode="decode", positions=positions,
-        rope=_rope_for(cfg, 1, positions.device, positions=positions))
+        rope=_rope_for(cfg, positions.shape[0], 1, positions.device,
+                       positions=positions))
 
 
 def decode_step(cfg, params, cache, tokens, positions, *, ctx: L.Ctx,
@@ -438,13 +476,14 @@ def forward_segment(cfg, params, x, lo: int, hi: int, *, ctx: L.Ctx,
         if tokens is None:
             raise ValueError("forward_segment from block 0 needs tokens")
         x = _embed_tokens(params, tokens, ctx.act_dtype)
-    ctx = dataclasses.replace(ctx, rope=_rope_for(cfg, x.shape[1], x.device))
+    ctx = dataclasses.replace(ctx, rope=_rope_for(cfg, x.shape[0], x.shape[1],
+                                                  x.device))
     for idx in range(lo, hi):
         u, j = divmod(idx, len(pat))
         kind = pat[j]
         p = (params.get("shared") if kind == "shared_attn"
              else _unit(params["units"], u - unit_offset)[f"{j}:{kind}"])
-        x, _ = _apply_block(cfg, kind, p, x, ctx, None)
+        x, _, _ = _apply_block(cfg, kind, p, x, ctx, None)
     if hi == n_blocks(cfg):
         x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
         return _head(cfg, params, x)

@@ -14,8 +14,9 @@ Not ported: pjit and buffer donation, ``ShardingRules``,
 and ``cache_shardings`` (the reference's multi-device placement; the
 port trains on one card). The ``mesh``/``rules`` arguments and
 ``TrainConfig``'s TPU fields (``use_pallas``, ``block_q``, ``block_k``,
-``scan_unroll``, ``attn_compute_dtype``, ``moe_dispatch``) are accepted
-and ignored, as :class:`repro_torch.models.layers.Ctx` ignores them.
+``scan_unroll``, ``attn_compute_dtype``) are accepted and ignored, as
+:class:`repro_torch.models.layers.Ctx` ignores them; ``moe_dispatch``
+picks the MoE layout (``global`` or ``batch_local``).
 ``make_prefill_step`` and ``make_decode_step`` are thin wrappers over
 ``lm.forward`` and ``lm.decode_step``.
 """

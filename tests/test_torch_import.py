@@ -49,6 +49,12 @@ def test_modules_and_chip_smoke_import_without_jax():
             "repro_torch.serve_fleet.__main__", "repro_torch.obs.__main__",
             "repro_torch.launch.paper_tables",
             "repro_torch.configs.granite_3_2b",
+            "repro_torch.configs.llama3_8b",
+            "repro_torch.configs.internlm2_20b",
+            "repro_torch.configs.mixtral_8x7b",
+            "repro_torch.configs.phi35_moe",
+            "repro_torch.configs.qwen2_vl_7b",
+            "repro_torch.configs.whisper_small",
             "repro_torch.train.step", "repro_torch.launch.train",
             "repro_torch.launch.lm_split_train"} <= set(mods)
     code = ("import sys\n"

@@ -25,6 +25,12 @@ DECODE_CASES = [
     (8, 32, 32, 2048, 64, [1, 2048, 100, 513, 1024, 37, 2000, 777]),  # Zamba2
     (3, 4, 4, 130, 16, [130, 64, 1]),             # smoke configs' heads, D=16
     (2, 4, 2, 64, 16, [64, 17]),
+    # head dim 128 in the 8-head bucket: groups 6 (InternLM2-20B) and 7
+    # (Qwen2-VL-7B), at the serving cache and ragged
+    (8, 48, 8, 2048, 128, [1, 2048, 100, 513, 1024, 37, 2000, 777]),
+    (8, 28, 4, 2048, 128, [1, 2048, 100, 513, 1024, 37, 2000, 777]),
+    (3, 12, 2, 300, 128, [300, 1, 129]),
+    (2, 14, 2, 130, 128, [130, 64]),
 ]
 
 
@@ -48,6 +54,16 @@ DECODE_CASES = [
     (2, 4, 2, 100, 164, 64, True, None),
     (1, 4, 2, 150, 70, 32, True, None),
     (1, 6, 3, 201, 201, 64, True, 90),
+    # head dim 128: groups 4 (Llama-3-8B, Mixtral, Phi-3.5-MoE), 6
+    # (InternLM2-20B) and 7 (Qwen2-VL-7B), a window (Mixtral's, scaled
+    # down), ragged Skv both ways, non-causal
+    (1, 32, 8, 512, 512, 128, True, None),
+    (1, 48, 8, 300, 300, 128, True, None),
+    (1, 28, 4, 257, 257, 128, True, None),
+    (1, 8, 2, 700, 700, 128, True, 256),
+    (2, 4, 2, 100, 164, 128, True, None),
+    (1, 4, 2, 150, 70, 128, True, None),
+    (2, 3, 1, 65, 130, 128, False, None),
 ])
 def test_flash_kernel_vs_plain(B, H, KV, Sq, Skv, D, causal, window, dtype):
     dev = require_cuda()
@@ -59,6 +75,41 @@ def test_flash_kernel_vs_plain(B, H, KV, Sq, Skv, D, causal, window, dtype):
                                             window=window)
     tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("H,KV,S,window", [(32, 8, 512, None),
+                                           (48, 8, 300, None),
+                                           (28, 4, 257, 100),
+                                           (8, 2, 700, 256)])
+def test_flash_kernel_lse_at_head_dim_128(H, KV, S, window, dtype):
+    """B2 at head dim 128 with its lse output (the training path's launch)
+    against the plain version, and the same launch without lse giving
+    the same output bit for bit."""
+    dev = require_cuda()
+    g = torch.Generator(device=dev).manual_seed(3)
+    q, k, v = [torch.randn(s, generator=g, device=dev).to(dtype)
+               for s in ((1, H, S, 128), (1, KV, S, 128), (1, KV, S, 128))]
+    n0 = flash_attn.flash_attention_fwd.launches
+    o, lse = flash_attn.flash_attention_fwd(q, k, v, window=window, lse=True)
+    bare = flash_attn.flash_attention_fwd(q, k, v, window=window)
+    po, plse = flash_attn.flash_attention_lse_plain(q, k, v, window=window)
+    torch.cuda.synchronize()
+    assert flash_attn.flash_attention_fwd.launches == n0 + 2
+    assert torch.equal(o, bare)
+    tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
+    torch.testing.assert_close(o.float(), po.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(lse, plse, atol=tol, rtol=tol)
+
+
+@pytest.mark.requires_cuda
+def test_flash_kernel_refuses_other_head_dims():
+    dev = require_cuda()
+    for D in (8, 48, 96, 256):
+        q = torch.randn(1, 2, 8, D, device=dev)
+        with pytest.raises(ValueError, match="unsupported shapes"):
+            flash_attn.flash_attention_fwd(q, q, q)
 
 
 @pytest.mark.requires_cuda
@@ -79,7 +130,8 @@ def test_decode_kernel_vs_plain(B, H, KV, S, D, lens, dtype):
 @pytest.mark.requires_cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("H,KV,D", [(15, 5, 64), (32, 32, 64), (4, 4, 16),
-                                    (8, 2, 128), (6, 2, 32)])
+                                    (8, 2, 128), (6, 2, 32), (48, 8, 128),
+                                    (28, 4, 128)])
 def test_decode_kernel_lengths_straddling_split_edges(H, KV, D, dtype):
     """Lengths inside the first split, on its edge, one past it, across
     several splits, and the whole cache, with empty splits after them."""

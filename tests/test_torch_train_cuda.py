@@ -133,25 +133,35 @@ def test_decode_attention_refuses_a_gradient():
 
 
 PROJECTIONS = ("wq", "wk", "wv", "wo", "wi", "w_in", "w_bc", "w_dt", "w_out",
-               "w_qkv", "w_if", "w_x", "w_h")
+               "w_qkv", "w_if", "w_x", "w_h", "router")
 
 
 @pytest.mark.requires_cuda
 @pytest.mark.parametrize("remat", ["full", "dots"])
-@pytest.mark.parametrize("arch", ["smollm_360m", "zamba2_1_2b", "xlstm_1_3b"])
+@pytest.mark.parametrize("arch", ["smollm_360m", "zamba2_1_2b", "xlstm_1_3b",
+                                  "mixtral_8x7b", "phi35_moe"])
 def test_smoke_train_step_on_the_card_equals_the_cpu(arch, remat):
     """One loss and gradient of a smoke config on the card against the
     CPU, under full and selective (dots) remat: every kernel of the
     architecture is launched twice a layer (the forward and the
-    recompute), B3 never, and the projections get nonzero gradients."""
+    recompute), B3 never, and the projections (the MoE router and
+    experts included) get nonzero gradients. The MoE configs run both
+    dispatch layouts."""
     dev = require_cuda()
     cfg = configs.get_smoke(arch)
+    for dispatch in (("global", "batch_local") if cfg.n_experts
+                     else ("global",)):
+        _smoke_step_on_the_card(cfg, remat, dispatch, dev)
+
+
+def _smoke_step_on_the_card(cfg, remat, dispatch, dev):
     params = lm.init(cfg, torch.Generator().manual_seed(0))
     gen = torch.Generator().manual_seed(1)
     toks = torch.randint(0, cfg.vocab, (2, 65), generator=gen,
                          dtype=torch.int32)
     batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
-    tcfg = TrainConfig(act_dtype=torch.float32, remat=remat)
+    tcfg = TrainConfig(act_dtype=torch.float32, remat=remat,
+                       moe_dispatch=dispatch)
     on_card = map_tree(lambda t: t.to(dev), params)
     card_batch = {k: v.to(dev) for k, v in batch.items()}
     kernels = (flash_attn.flash_attention_fwd, decode_attn.decode_attention,
@@ -159,7 +169,8 @@ def test_smoke_train_step_on_the_card_equals_the_cpu(arch, remat):
     n0 = [k.launches for k in kernels]
     with torch.no_grad():
         lm.loss(cfg, on_card, card_batch["tokens"], card_batch["labels"],
-                ctx=Ctx(cfg=cfg, act_dtype=torch.float32), remat="none")
+                ctx=Ctx(cfg=cfg, act_dtype=torch.float32,
+                        moe_dispatch=dispatch), remat="none")
     n1 = [k.launches for k in kernels]
     lc, _, gc = loss_and_grads(cfg, tcfg, on_card, card_batch)
     once = [b - a for a, b in zip(n0, n1)]
