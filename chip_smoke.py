@@ -139,6 +139,7 @@ Exits non-zero without a CUDA device.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import math
 import statistics
@@ -199,9 +200,12 @@ from repro_torch.serve_fleet.traffic import (PassWindowTraffic,  # noqa: E402
                                              TrafficConfig)
 from repro_torch.launch import paper_tables  # noqa: E402
 from repro_torch.launch import train as launch_train  # noqa: E402
+from repro_torch.launch import (constellation_online_learning,  # noqa: E402
+                                isl_exchange, quickstart, serve_batched)
 from repro_torch.train.optimizer import AdamWConfig, adamw_init  # noqa: E402
 from repro_torch.train.step import (TrainConfig, TrainState,  # noqa: E402
-                                    loss_and_grads, make_train_step)
+                                    loss_and_grads, make_decode_step,
+                                    make_prefill_step, make_train_step)
 from repro_torch.obs import __main__ as obs_main  # noqa: E402
 from repro_torch.obs.metrics import sync_budget  # noqa: E402
 from repro_torch.sim import (ACTION_NAMES, ACTION_SHED,  # noqa: E402
@@ -315,6 +319,25 @@ LM_B2_PER_STEP = 64                 # 32 layers, forward and remat recompute
 LM_RING_PASSES, LM_RING_STEPS, LM_RING_BATCH, LM_CUT = 4, 4, 4, 16
 LM_B2_PER_SL_STEP = 32              # 16 layers a segment, forward only
 LM_STEP_LOSS_RTOL = 1e-5
+# Phase 14: Whisper-small at its published widths (12 + 12 layers, d 768,
+# 12 MHA heads of 64, d_ff 3,072, vocab 51,865, 1,500 encoder frames).
+# 14a serves 8 requests of 1,500 seeded stub frames and 64-token prompts
+# through make_prefill_step, then cache_from_prefill at s_max 448
+# (openai/whisper-small's max_target_positions) and 32 greedy steps of
+# make_decode_step: B2 runs 3 a layer a prefill (encoder, self, cross),
+# B3 2 a layer a step (self, cross over the fixed memory). 14b trains it
+# through launch.train (batch 4 x 128, bf16, remat full, AdamW): 12
+# encoder B2, 24 decoder and 24 recomputed a step. Phase 3 holds B2 and B3
+# at these shapes.
+WHISPER_H, WHISPER_FRAMES = 12, 1500
+WHISPER_B, WHISPER_PROMPT, WHISPER_S_MAX = 8, 64, 448
+WHISPER_STEPS, WHISPER_PARITY_STEPS = 32, 8
+WHISPER_B2_PER_PREFILL, WHISPER_B3_PER_STEP = 36, 24
+WHISPER_TRAIN_B, WHISPER_TRAIN_S, WHISPER_TRAIN_STEPS = 4, 128, 10
+WHISPER_B2_PER_TRAIN_STEP = 60
+# prefill-then-decode against the full forward (f32, kernel path), the
+# tolerance of tests/test_decode_parity.py::test_prefill_then_decode
+DECODE_PARITY_TOL = 2e-3
 
 
 def check(ok, what):
@@ -346,12 +369,17 @@ def bound(nbytes, nops, dtype):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def check_prefill(dtype, S, gen, flush, H=H, KV=KV, D=D, window=None):
+def check_prefill(dtype, S, gen, flush, H=H, KV=KV, D=D, window=None,
+                  B=1, Skv=None, causal=True):
+    """B2 at (B, H, S, D) against (B, KV, Skv, D) keys (Skv = S unless
+    given), causal (with a window) or not."""
     dev = torch.device("cuda")
+    Skv = S if Skv is None else Skv
     q, k, v = [torch.randn(s, generator=gen, device=dev).to(dtype)
-               for s in ((1, H, S, D), (1, KV, S, D), (1, KV, S, D))]
-    got = flash_attn.flash_attention_fwd(q, k, v, causal=True, window=window)
-    want = flash_attn.flash_attention_plain(q, k, v, causal=True,
+               for s in ((B, H, S, D), (B, KV, Skv, D), (B, KV, Skv, D))]
+    got = flash_attn.flash_attention_fwd(q, k, v, causal=causal,
+                                         window=window)
+    want = flash_attn.flash_attention_plain(q, k, v, causal=causal,
                                             window=window)
     torch.cuda.synchronize()
     err = (got.float() - want.float()).abs().max().item()
@@ -359,14 +387,15 @@ def check_prefill(dtype, S, gen, flush, H=H, KV=KV, D=D, window=None):
                                rtol=TOL[dtype])
     del want
     kx, vx = k.repeat_interleave(H // KV, 1), v.repeat_interleave(H // KV, 1)
-    # the (q, k) pairs of the causal band, within the window if any
+    # the (q, k) pairs of the causal band, within the window if any; all
+    # of them without the band
     w = S if window is None else min(window, S)
-    pairs = w * (w + 1) // 2 + (S - w) * w
+    pairs = (w * (w + 1) // 2 + (S - w) * w) if causal else S * Skv
     b_ms, b_by = bound((2 * q.numel() + 2 * k.numel()) * q.element_size(),
-                       4 * D * H * pairs, dtype)
+                       4 * D * H * B * pairs, dtype)
     if window is None:
         sdpa = lambda: F.scaled_dot_product_attention(q, kx, vx,
-                                                      is_causal=True)
+                                                      is_causal=causal)
     else:
         pos = torch.arange(S, device=dev)
         band = (pos[None, :] <= pos[:, None]) & (pos[None, :]
@@ -374,25 +403,29 @@ def check_prefill(dtype, S, gen, flush, H=H, KV=KV, D=D, window=None):
         sdpa = lambda: F.scaled_dot_product_attention(q, kx, vx,
                                                       attn_mask=band)
     return dict(
-        shape=f"prefill B=1 H={H} KV={KV} S={S} D={D}"
+        shape=f"prefill B={B} H={H} KV={KV} S={S} D={D}"
+              + ("" if Skv == S else f" Skv={Skv}")
+              + ("" if causal else " non-causal")
               + ("" if window is None else f" window={window}")
               + f" {str(dtype)[6:]}",
         max_abs_err=err,
-        ms=time_ms(lambda: flash_attn.flash_attention_fwd(q, k, v,
-                                                          window=window),
-                   flush=flush),
+        ms=time_ms(lambda: flash_attn.flash_attention_fwd(
+            q, k, v, causal=causal, window=window), flush=flush),
         plain_ms=time_ms(lambda: flash_attn.flash_attention_plain(
-            q, k, v, window=window), flush=flush),
+            q, k, v, causal=causal, window=window), flush=flush),
         library_ms=time_ms(sdpa, flush=flush),
         bound_ms=b_ms, bound_by=b_by)
 
 
-def check_decode(dtype, gen, flush, H=H, KV=KV, D=D):
+def check_decode(dtype, gen, flush, H=H, KV=KV, D=D, S=DECODE_S,
+                 lens=DECODE_LENS):
+    """B3 for DECODE_B rows of one token against (DECODE_B, KV, S, D)
+    caches, row b valid up to lens[b]."""
     dev = torch.device("cuda")
     q, k, v = [torch.randn(s, generator=gen, device=dev).to(dtype)
-               for s in ((DECODE_B, H, 1, D), (DECODE_B, KV, DECODE_S, D),
-                         (DECODE_B, KV, DECODE_S, D))]
-    lengths = torch.tensor(DECODE_LENS, dtype=torch.int32, device=dev)
+               for s in ((DECODE_B, H, 1, D), (DECODE_B, KV, S, D),
+                         (DECODE_B, KV, S, D))]
+    lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
     got = decode_attn.decode_attention(q, k, v, lengths)
     again = decode_attn.decode_attention(q, k, v, lengths)
     want = decode_attn.decode_attention_plain(q, k, v, lengths)
@@ -403,16 +436,16 @@ def check_decode(dtype, gen, flush, H=H, KV=KV, D=D):
     torch.testing.assert_close(got.float(), want.float(), atol=TOL[dtype],
                                rtol=TOL[dtype])
     kx, vx = k.repeat_interleave(H // KV, 1), v.repeat_interleave(H // KV, 1)
-    mask = (torch.arange(DECODE_S, device=dev)[None, :]
+    mask = (torch.arange(S, device=dev)[None, :]
             < lengths[:, None])[:, None, None, :]
-    rows = sum(DECODE_LENS)
-    b_ms, b_by = bound(2 * q.numel() * q.element_size() + 4 * len(DECODE_LENS)
+    rows = sum(lens)
+    b_ms, b_by = bound(2 * q.numel() * q.element_size() + 4 * len(lens)
                        + 2 * rows * KV * D * k.element_size(),
                        4 * D * H * rows, dtype)
     return dict(
-        shape=f"decode B={DECODE_B} H={H} KV={KV} s_max={DECODE_S} D={D} "
-              f"lengths={DECODE_LENS} {str(dtype)[6:]}", max_abs_err=err,
-        splits=decode_attn.n_splits(DECODE_S, D, dtype),
+        shape=f"decode B={DECODE_B} H={H} KV={KV} s_max={S} D={D} "
+              f"lengths={lens} {str(dtype)[6:]}", max_abs_err=err,
+        splits=decode_attn.n_splits(S, D, dtype),
         split_rows=decode_attn.split_rows(D, dtype),
         ms=time_ms(lambda: decode_attn.decode_attention(q, k, v, lengths),
                    flush=flush),
@@ -948,25 +981,25 @@ def serve_full_width(arch, label):
     return launches, split, params
 
 
-def cuda_events(run, cpu=True, whole=None, retake=True):
+def cuda_events(run, whole=None, retake=True):
     """The kernels (CUDA events by name) of torch.profiler's trace of
     ``run()``. The profiler has lost the first kernels of a trace on the
     H100 (all of a trace's quantizer launches once, 1 of 20 another time,
     in phase 5; 3 marker kernels at one edge of every CPU+CUDA trace), so
     the trace is framed by ``PROFILE_EDGE`` marker kernels on each side
     (``torch.cuda._sleep``'s ``spin_kernel``, left out of the result),
-    which a loss at an edge takes first. A kernel-only trace (``cpu``
-    false, a few ms) is taken again, each time of a new ``run()``, up to
-    3 traces, while no marker is left before or after every other kernel
-    or ``whole(kernels)`` is false; a CPU+CUDA trace (a revolution, a
-    few prefills: a minute to parse), or any trace with ``retake`` false
-    (a fleet revolution's ~120k kernels), is taken once and a missing
-    frame reported. The last trace is returned as it is, for the
-    caller's checks to judge."""
+    which a loss at an edge takes first. The trace is kernel-only (the
+    callers read only the kernels; a CPU+CUDA trace of a revolution or of
+    a few xLSTM prefills took a minute or more to parse). It is taken
+    again, each time of a new ``run()``, up to 3 traces, while no marker
+    is left before or after every other kernel or ``whole(kernels)`` is
+    false; with ``retake`` false (a revolution, which a new run would
+    advance) it is taken once and a missing frame reported. The last
+    trace is returned as it is, for the caller's checks to judge."""
     from torch.profiler import ProfilerActivity, profile
-    acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if cpu else [])
+    acts = [ProfilerActivity.CUDA]
     cuda = torch.autograd.DeviceType.CUDA
-    attempts = 3 if retake and not cpu else 1
+    attempts = 3 if retake else 1
     for attempt in range(attempts):
         with profile(activities=acts) as prof:
             time.sleep(0.02)
@@ -1165,7 +1198,7 @@ def device_ms(fn, flush, n=20):
             fn()
     is_fill = lambda e: "FillFunctor" in e.key or "Memset" in e.key
     # whole: every call's flush is in the trace
-    kern = cuda_events(run, cpu=False, whole=lambda kern: sum(
+    kern = cuda_events(run, whole=lambda kern: sum(
         e.count for e in kern if is_fill(e)) >= n)
     return [(e.key, e.count / n,
              getattr(e, "self_device_time_total", 0) / n / 1e3)
@@ -1311,12 +1344,12 @@ def quant_kernels(kern):
             sum(getattr(e, "self_device_time_total", 0) for e in ev) / 1e3)
 
 
-def profile_revolution(eng, label, steps, cpu=True):
+def profile_revolution(eng, label, steps):
     """One more revolution of ``eng`` (``steps`` executed SL steps),
     unprofiled (host clock, ending in the engine's telemetry read) then
-    profiled once (``cpu``: CPU+CUDA, else a kernel-only trace): card
-    time by kernel, idle share, and the quantizer's launches seen by the
-    profiler, which hold the trace to the wrapper's count."""
+    profiled once (a kernel-only trace): card time by kernel, idle share,
+    and the quantizer's launches seen by the profiler, which hold the
+    trace to the wrapper's count."""
     t0 = time.perf_counter()
     eng.run(1)
     wall = time.perf_counter() - t0
@@ -1327,7 +1360,7 @@ def profile_revolution(eng, label, steps, cpu=True):
         n0 = split_quant.quantize_dequantize.launches
         eng.run(1)
         counted = split_quant.quantize_dequantize.launches - n0
-    kern = cuda_events(run, cpu=cpu, retake=False)
+    kern = cuda_events(run, retake=False)
     dev_us = lambda e: getattr(e, "self_device_time_total", 0)
     busy = sum(dev_us(e) for e in kern) / 1e3
     q_n, q_ms = quant_kernels(kern)
@@ -1724,7 +1757,7 @@ def fleet_full_width(label):
     print(f"  quantizer launches {launches} = 2 x {FLEET_PLANES} planes x "
           f"{n0} passes x {K} executed steps (masked included); "
           f"quantize_rows launches and copies {other}")
-    profile_revolution(fleet, label, executed, cpu=False)
+    profile_revolution(fleet, label, executed)
     return launches
 
 
@@ -2067,7 +2100,7 @@ def granite_serving_fleet_11a(label):
         fleet.run(100)                      # ends in its one host sync
         host.append((time.perf_counter() - t) * 1e3)
 
-    kern = cuda_events(framed, cpu=False)
+    kern = cuda_events(framed)
     host_ms = host[-1]
     busy = sum(getattr(e, "self_device_time_total", 0) for e in kern) / 1e3
     n_kern = sum(e.count for e in kern)
@@ -2117,28 +2150,34 @@ def serving_clis_11b(label):
 
 
 def check_flash_train(dtype, gen, flush, B=TRAIN_B, S=TRAIN_S, H=H, KV=KV,
-                      D=D):
-    """B2 with its lse at SmolLM-360M's training shape (or another): the
-    kernel's lse against the plain lse, its time with and without lse,
-    the plain backward's time beside SDPA's forward + backward, and the
-    autograd Function's gradients against the plain path's."""
+                      D=D, causal=True):
+    """B2 with its lse at SmolLM-360M's training shape (or another, causal
+    or not): the kernel's lse against the plain lse, its time with and
+    without lse, the plain backward's time beside SDPA's forward +
+    backward, and the autograd Function's gradients against the plain
+    path's."""
     dev = torch.device("cuda")
     q, k, v, do = [torch.randn(s, generator=gen, device=dev).to(dtype)
                    for s in ((B, H, S, D), (B, KV, S, D), (B, KV, S, D),
                              (B, H, S, D))]
-    o, lse = flash_attn.flash_attention_fwd(q, k, v, lse=True)
-    po, plse = flash_attn.flash_attention_lse_plain(q, k, v)
+    o, lse = flash_attn.flash_attention_fwd(q, k, v, causal=causal, lse=True)
+    po, plse = flash_attn.flash_attention_lse_plain(q, k, v, causal=causal)
     torch.cuda.synchronize()
     torch.testing.assert_close(o.float(), po.float(), atol=TOL[dtype],
                                rtol=TOL[dtype])
     torch.testing.assert_close(lse, plse, atol=TOL[dtype], rtol=TOL[dtype])
     lse_err = (lse - plse).abs().max().item()
+    o_no_lse = flash_attn.flash_attention_fwd(q, k, v, causal=causal)
+    torch.testing.assert_close(o_no_lse.float(), po.float(), atol=TOL[dtype],
+                               rtol=TOL[dtype])
+    del o_no_lse
 
     def grads(fn):
         ts = [t.detach().requires_grad_() for t in (q, k, v)]
         return torch.autograd.grad(fn(*ts), ts, do)
-    got = grads(lambda *t: ops.flash_attention(*t))
-    want = grads(lambda *t: flash_attn.flash_attention_plain(*t))
+    got = grads(lambda *t: ops.flash_attention(*t, causal=causal))
+    want = grads(lambda *t: flash_attn.flash_attention_plain(
+        *t, causal=causal))
     for g, w in zip(got, want):
         torch.testing.assert_close(g.float(), w.float(), atol=GRAD_TOL[dtype],
                                    rtol=GRAD_TOL[dtype])
@@ -2149,9 +2188,9 @@ def check_flash_train(dtype, gen, flush, B=TRAIN_B, S=TRAIN_S, H=H, KV=KV,
     sq, sk, sv = (t.detach().requires_grad_() for t in (q, kx, vx))
 
     def sdpa_fwd_bwd():
-        out = F.scaled_dot_product_attention(sq, sk, sv, is_causal=True)
+        out = F.scaled_dot_product_attention(sq, sk, sv, is_causal=causal)
         torch.autograd.grad(out, (sq, sk, sv), do)
-    pairs = S * (S + 1) // 2
+    pairs = S * (S + 1) // 2 if causal else S * S
     elt = q.element_size()
     b_ms, b_by = bound((2 * q.numel() + 2 * k.numel()) * elt
                        + 4 * B * H * S, 4 * D * H * B * pairs, dtype)
@@ -2160,20 +2199,21 @@ def check_flash_train(dtype, gen, flush, B=TRAIN_B, S=TRAIN_S, H=H, KV=KV,
     bb_ms, bb_by = bound((4 * q.numel() + 4 * k.numel()) * elt + 4 * B * H * S,
                          10 * D * H * B * pairs, dtype)
     return dict(
-        shape=f"train B={B} H={H} KV={KV} S={S} D={D} {str(dtype)[6:]}, "
+        shape=f"train B={B} H={H} KV={KV} S={S} D={D}"
+              + ("" if causal else " non-causal") + f" {str(dtype)[6:]}, "
               f"with lse", max_abs_err=(o.float() - po.float()).abs().max()
         .item(), lse_err=lse_err, grad_err=grad_err,
-        ms=time_ms(lambda: flash_attn.flash_attention_fwd(q, k, v, lse=True),
-                   flush=flush),
-        ms_no_lse=time_ms(lambda: flash_attn.flash_attention_fwd(q, k, v),
-                          flush=flush),
-        plain_ms=time_ms(lambda: flash_attn.flash_attention_plain(q, k, v),
-                         flush=flush),
+        ms=time_ms(lambda: flash_attn.flash_attention_fwd(
+            q, k, v, causal=causal, lse=True), flush=flush),
+        ms_no_lse=time_ms(lambda: flash_attn.flash_attention_fwd(
+            q, k, v, causal=causal), flush=flush),
+        plain_ms=time_ms(lambda: flash_attn.flash_attention_plain(
+            q, k, v, causal=causal), flush=flush),
         library_ms=time_ms(lambda: F.scaled_dot_product_attention(
-            q, kx, vx, is_causal=True), flush=flush),
+            q, kx, vx, is_causal=causal), flush=flush),
         bound_ms=b_ms, bound_by=b_by,
         bwd_ms=time_ms(lambda: flash_attn.flash_attention_bwd_plain(
-            q, k, v, o, lse, do), flush=flush),
+            q, k, v, o, lse, do, causal=causal), flush=flush),
         bwd_bound_ms=bb_ms, bwd_bound_by=bb_by,
         sdpa_fwd_bwd_ms=time_ms(sdpa_fwd_bwd, flush=flush))
 
@@ -2297,7 +2337,7 @@ def lm_train_12a(label):
             state, m = step(state, batch)
             float(m["loss"])
         host.append((time.perf_counter() - t) * 1e3 / 2)
-    kern = cuda_events(framed, cpu=False)
+    kern = cuda_events(framed)
     busy = sum(getattr(e, "self_device_time_total", 0) for e in kern) / 2e3
     check(0 < busy <= host[-1], f"12a: card {busy} ms in {host[-1]} ms")
     tok = TRAIN_B * TRAIN_S
@@ -2411,7 +2451,8 @@ def smoke_train_12c(label):
             "w_qkv", "w_if", "w_x", "w_h", "router")
     kernel_of = {"zamba2_1_2b": "mamba_scan", "xlstm_1_3b": "mlstm_scan",
                  "mixtral_8x7b": "flash_attn_fwd",
-                 "phi35_moe": "flash_attn_fwd"}
+                 "phi35_moe": "flash_attn_fwd",
+                 "whisper_small": "flash_attn_fwd"}
     total = {n: 0 for n in WRAPPERS}
     for arch, want in kernel_of.items():
         cfg = configs.get_smoke(arch)
@@ -2419,6 +2460,12 @@ def smoke_train_12c(label):
         toks = torch.randint(0, cfg.vocab, (2, 129), dtype=torch.int32,
                              generator=torch.Generator().manual_seed(1))
         batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+        frames = {}
+        if cfg.enc_dec:            # Whisper: seeded encoder frames
+            frames["enc_frames"] = torch.randn(
+                (2, cfg.frontend_len, cfg.d_model),
+                generator=torch.Generator().manual_seed(2)) * 0.1
+            batch.update(frames)
         on_card = map_tree(lambda t: t.to("cuda"), params)
         card_batch = {k: v.cuda() for k, v in batch.items()}
         dispatches = ("global", "batch_local") if cfg.n_experts else \
@@ -2435,14 +2482,20 @@ def smoke_train_12c(label):
                         card_batch["labels"],
                         ctx=Ctx(cfg=cfg, act_dtype=torch.float32,
                                 moe_dispatch=dispatch),
+                        enc_frames=card_batch.get("enc_frames"),
                         remat="none")
             once = {n: fn.launches for n, fn in WRAPPERS.items()}
             lc, _, gc = loss_and_grads(cfg, tcfg, on_card, card_batch)
             launches = {n: fn.launches - once[n] for n, fn in WRAPPERS.items()}
+            # remat recomputes the decoder's launches; the encoder's (one
+            # B2 a layer) are not recomputed, as in the reference
+            enc = {want: cfg.n_enc_layers} if cfg.enc_dec else {}
             check(once[want] > 0 and once["decode_attn"] == 0
-                  and launches == {n: 2 * c for n, c in once.items()},
+                  and launches == {n: 2 * c - enc.get(n, 0)
+                                   for n, c in once.items()},
                   f"12c {arch} remat {remat}: forward {once}, loss and "
-                  f"gradient {launches}: want twice the forward's")
+                  f"gradient {launches}: want twice the forward's (the "
+                  f"encoder's once)")
             check(abs(float(lc) - float(lp)) <= 1e-5 * abs(float(lp)),
                   f"12c {arch} remat {remat} {dispatch} loss card "
                   f"{float(lc)} cpu {float(lp)}")
@@ -2480,6 +2533,323 @@ def smoke_train_12c(label):
     return total
 
 
+def whisper_serve_14a(label):
+    """Phase 14a: Whisper-small at its published widths (nothing cut),
+    seeded weights cast once to bf16 as the engines cast them: 8 requests
+    of 1,500 stub frames and 64-token prompts through make_prefill_step
+    (exactly 36 B2), cache_from_prefill at s_max 448, 32 greedy steps of
+    make_decode_step (exactly 24 B3 a step), the cross cache bit for bit
+    unchanged; every B2 and B3 call of one prefill and one step against
+    its plain version; f32 prefill logits kernel vs plain; f32
+    prefill-then-decode against the full forward over 8 steps. Prints the
+    prefill's time and its encoder's share, the decode step's time and
+    rate, one trace of each and the peak memory. Returns the launches."""
+    t_phase = time.perf_counter()
+    cfg = configs.get("whisper_small")
+    check((cfg.n_layers, cfg.n_enc_layers, cfg.d_model, cfg.n_heads,
+           cfg.head_dim, cfg.d_ff, cfg.vocab, cfg.frontend_len)
+          == (12, 12, 768, WHISPER_H, D, 3072, 51865, WHISPER_FRAMES),
+          "whisper-small published widths")
+    B, P = WHISPER_B, WHISPER_PROMPT
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated() / 1e9      # by earlier phases
+    torch.cuda.reset_peak_memory_stats()
+    params32 = lm.init(cfg, torch.Generator(device="cuda").manual_seed(0))
+    params = _cast_matmul_weights(params32, torch.bfloat16, "cuda")
+    n_params = sum(t.numel() for t in tree_leaves(params32))
+    frames = torch.randn((B, WHISPER_FRAMES, cfg.d_model), device="cuda",
+                         generator=torch.Generator(device="cuda")
+                         .manual_seed(1)) * 0.1
+    rng = np.random.default_rng(2)
+    seq = torch.tensor(rng.integers(0, cfg.vocab, (B, P + WHISPER_PARITY_STEPS))
+                       .astype(np.int32), device="cuda")
+    batch = {"tokens": seq[:, :P], "enc_frames": frames}
+    prefill, _ = make_prefill_step(cfg, act_dtype=torch.bfloat16)
+    serve_step, _, _, _ = make_decode_step(
+        cfg, batch=B, s_max=WHISPER_S_MAX, act_dtype=torch.bfloat16,
+        device="cuda")
+    counts = lambda: {n: w.launches for n, w in WRAPPERS.items()}
+
+    def zero():
+        for w in WRAPPERS.values():
+            w.launches = 0
+
+    def timed_prefill():
+        t0 = time.perf_counter()
+        out = prefill(params, batch)
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    timed_prefill()                                   # warm-up
+    zero()
+    (last, caches), _ = timed_prefill()
+    p_launches = counts()
+    check(p_launches == {**dict.fromkeys(WRAPPERS, 0),
+                         "flash_attn_fwd": WHISPER_B2_PER_PREFILL},
+          f"14a prefill launches {p_launches}")
+    prefill_ms = statistics.median(timed_prefill()[1] for _ in range(3))
+    ectx = Ctx(cfg=cfg, mode="prefill", act_dtype=torch.bfloat16)
+
+    def encoder():
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            lm._run_encoder(cfg, params, frames, ectx)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+    encoder()
+    enc_ms = statistics.median(encoder() for _ in range(3))
+
+    cache = lm.cache_from_prefill(cfg, caches, WHISPER_S_MAX, torch.bfloat16)
+    del caches
+    cross0 = map_tree(torch.clone, {k: b["cross"] for k, b in cache.items()})
+    check(tuple(cache["0:attn"]["cross"]["k"].shape)
+          == (cfg.n_units, B, WHISPER_H, WHISPER_FRAMES, D)
+          and tuple(cache["0:attn"]["attn"]["k"].shape)
+          == (cfg.n_units, B, WHISPER_H, WHISPER_S_MAX, D),
+          "14a decode cache shapes")
+    tok = last.argmax(-1).to(torch.int32)
+    generated, step_ms = [tok], []
+    zero()
+    for t in range(WHISPER_STEPS):
+        pos = torch.full((B,), P + t, dtype=torch.int32, device="cuda")
+        t0 = time.perf_counter()
+        logits, cache = serve_step(params, cache, tok, pos)
+        tok = logits.argmax(-1).to(torch.int32)
+        host_tok = tok.cpu()                          # the greedy read-back
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        generated.append(host_tok)
+        check(bool(torch.isfinite(logits).all()), f"14a step {t} logits")
+    d_launches = counts()
+    check(d_launches == {**dict.fromkeys(WRAPPERS, 0),
+                         "decode_attn": WHISPER_B3_PER_STEP * WHISPER_STEPS},
+          f"14a decode launches {d_launches}")
+    toks = torch.cat([g.cpu() for g in generated], dim=1)
+    check(tuple(toks.shape) == (B, WHISPER_STEPS + 1)
+          and bool(((toks >= 0) & (toks < cfg.vocab)).all()),
+          "14a greedy tokens")
+    check(all(torch.equal(cache[k]["cross"][kk], cross0[k][kk])
+              for k in cross0 for kk in ("k", "v")),
+          "14a: the cross cache changed during decode")
+
+    # every B2 call of one prefill and every B3 call of one step against
+    # its plain version on the same inputs (phase 3's tolerance)
+    _, p_calls = with_checked_ops(lambda: prefill(params, batch))
+    pos = torch.full((B,), P + WHISPER_STEPS, dtype=torch.int32,
+                     device="cuda")
+    _, d_calls = with_checked_ops(lambda: serve_step(
+        params, map_tree(torch.clone, cache), tok, pos))
+    check({n: c[0] for n, c in p_calls.items()}
+          == {"flash_attention": WHISPER_B2_PER_PREFILL}
+          and {n: c[0] for n, c in d_calls.items()}
+          == {"decode_attention": WHISPER_B3_PER_STEP},
+          f"14a checked calls {p_calls} {d_calls}")
+
+    # one trace of a decode step and of a prefill: card, host, idle
+    cache_p = map_tree(torch.clone, cache)
+    profile_calls(lambda: serve_step(params, cache_p, tok, pos)[0]
+                  .argmax(-1).cpu(), 5, "whisper decode steps (batch 8)",
+                  label)
+    del cache_p
+    profile_calls(lambda: prefill(params, batch)[0].argmax(-1).cpu(), 3,
+                  f"whisper prefills (batch {B}: {WHISPER_FRAMES} frames, "
+                  f"{P} tokens)", label)
+    del cache, params
+    torch.cuda.empty_cache()
+
+    # f32: prefill logits kernel vs plain, and prefill-then-decode against
+    # the full forward (kernel path)
+    pctx = Ctx(cfg=cfg, mode="prefill", act_dtype=torch.float32)
+    with torch.no_grad():
+        pk, _, caches = lm.forward(cfg, params32, seq[:, :P], ctx=pctx,
+                                   enc_frames=frames)
+        pp, _, _ = with_plain_ops(lambda: lm.forward(
+            cfg, params32, seq[:, :P], ctx=pctx, enc_frames=frames))
+        p_err, p_max, p_agree = logits_close(pk, pp, "14a f32 prefill",
+                                             PREFILL_F32_TOL_OF_MAX)
+        del pp
+        full, _, _ = lm.forward(cfg, params32, seq, enc_frames=frames,
+                                ctx=dataclasses.replace(pctx, mode="train"))
+        cache = lm.cache_from_prefill(cfg, caches, WHISPER_S_MAX,
+                                      torch.float32)
+        del caches
+        dctx = dataclasses.replace(pctx, mode="decode")
+        par_err = 0.0
+        for t in range(P, P + WHISPER_PARITY_STEPS):
+            pos = torch.full((B,), t, dtype=torch.int32, device="cuda")
+            lg, cache = lm.decode_step(cfg, params32, cache, seq[:, t:t + 1],
+                                       pos, ctx=dctx)
+            want = full[:, t]
+            err = (lg[:, 0] - want).abs()
+            check(bool((err <= DECODE_PARITY_TOL
+                        + DECODE_PARITY_TOL * want.abs()).all()),
+                  f"14a f32 prefill-then-decode at {t}: {err.max().item()}")
+            par_err = max(par_err, err.max().item())
+    del cache, full, params32
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    torch.cuda.empty_cache()
+    med_step = statistics.median(step_ms)
+    print(f"whisper-small (published widths, nothing cut: 12 + 12 layers, "
+          f"d 768, 12 heads of 64, vocab 51,865; {n_params / 1e6:.1f}M "
+          f"params), bf16, {B} requests of {WHISPER_FRAMES} frames + {P} "
+          f"tokens, s_max {WHISPER_S_MAX}, {WHISPER_STEPS} greedy steps "
+          f"[{label}]")
+    print(f"  prefill {prefill_ms:.2f} ms (median of 3, host clock to a "
+          f"sync), encoder alone {enc_ms:.2f} ms = {enc_ms / prefill_ms:.1%} "
+          f"of it; launches {p_launches}")
+    print(f"  decode step median {med_step:.2f} ms over {WHISPER_STEPS} "
+          f"steps = {B * 1e3 / med_step:.1f} tok/s ({B} rows); launches "
+          f"{d_launches} ({WHISPER_B3_PER_STEP} B3 a step); cross cache "
+          f"unchanged bit for bit")
+    print(f"  every call vs plain (calls, err, max |plain|): prefill "
+          + ", ".join(f"{n} {c}x ({e:.3e}, {t:.3e})"
+                      for n, (c, e, t) in p_calls.items())
+          + "; decode step " + ", ".join(
+              f"{n} {c}x ({e:.3e}, {t:.3e})" for n, (c, e, t) in
+              d_calls.items()))
+    print(f"  f32 prefill logits kernel vs plain max abs err {p_err:.3e} of "
+          f"{p_max:.3e} (tol {PREFILL_F32_TOL_OF_MAX:g} of max; argmax equal "
+          f"{p_agree:.1%}); f32 prefill-then-decode vs the full forward, "
+          f"{WHISPER_PARITY_STEPS} steps: max abs err {par_err:.3e} (tol "
+          f"{DECODE_PARITY_TOL:g} + {DECODE_PARITY_TOL:g} |logit|)")
+    print(f"  peak device memory (max_memory_allocated) {peak:.2f} GB, of "
+          f"which {held:.2f} GB held before the phase; 14a "
+          f"{time.perf_counter() - t_phase:.1f} s [{label}]")
+    return {n: p_launches[n] + d_launches[n] for n in WRAPPERS}
+
+
+def whisper_train_14b(label):
+    """Phase 14b: Whisper-small at its published widths through
+    ``launch.train`` (batch 4 x 128, bf16, remat full, AdamW, zero
+    encoder frames as the reference hands its step): finite, falling
+    losses, exactly 60 B2 a step and no other kernel; one f32 step's loss
+    and gradients on seeded frames, kernel path against plain path, every
+    projection weight's gradient nonzero; the step's time."""
+    t_phase = time.perf_counter()
+    for fn in WRAPPERS.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    losses = launch_train.main([
+        "--arch", "whisper_small", "--steps", str(WHISPER_TRAIN_STEPS),
+        "--batch", str(WHISPER_TRAIN_B), "--seq", str(WHISPER_TRAIN_S),
+        "--remat", "full", "--lr", "3e-4", "--log-every", "5"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {n: fn.launches for n, fn in WRAPPERS.items()}
+    check(len(losses) == WHISPER_TRAIN_STEPS and all(np.isfinite(losses)),
+          f"14b losses {losses}")
+    check(losses[-1] < losses[0], f"14b loss fell: {losses[0]} -> "
+          f"{losses[-1]}")
+    check(launches == {**dict.fromkeys(WRAPPERS, 0), "flash_attn_fwd":
+                       WHISPER_B2_PER_TRAIN_STEP * WHISPER_TRAIN_STEPS},
+          f"14b launches {launches}: want {WHISPER_B2_PER_TRAIN_STEP} B2 a "
+          f"step, no other")
+
+    cfg = configs.get("whisper_small")
+    shards = TokenShards(vocab=cfg.vocab, seq_len=WHISPER_TRAIN_S,
+                         batch=WHISPER_TRAIN_B)
+    batch = {k: torch.as_tensor(v, device="cuda")
+             for k, v in shards.batch_at(0, 0).items()}
+    batch["enc_frames"] = torch.randn(
+        (WHISPER_TRAIN_B, WHISPER_FRAMES, cfg.d_model), device="cuda",
+        generator=torch.Generator(device="cuda").manual_seed(4)) * 0.1
+    params = lm.init(cfg, torch.Generator(device="cuda").manual_seed(3))
+    f32 = TrainConfig(act_dtype=torch.float32, remat="full")
+    lk, _, gk = loss_and_grads(cfg, f32, params, batch)
+    lp, _, gp = with_plain_ops(lambda: loss_and_grads(cfg, f32, params, batch))
+    lk, lp = float(lk), float(lp)
+    check(abs(lk - lp) <= LM_STEP_LOSS_RTOL * abs(lp), ("14b f32 loss", lk, lp))
+    g_err, n_proj = 0.0, 0
+    plain = dict(tree_flatten_with_names(gp))
+    for name, g in tree_flatten_with_names(gk):
+        torch.testing.assert_close(g, plain[name], atol=5e-4, rtol=5e-4)
+        g_err = max(g_err, (g - plain[name]).abs().max().item())
+        if name.rsplit(".", 1)[-1] in ("wq", "wk", "wv", "wo", "wi"):
+            # stacked leaves: every layer's slice
+            check(bool((g != 0).flatten(1).any(1).all()),
+                  f"14b: a layer of {name} has no gradient")
+            n_proj += 1
+    check(n_proj == 6 + 10, f"14b: {n_proj} stacked projection weights "
+          f"(the encoder's 6, the decoder's 10 with cross-attention's 4)")
+    del gk, gp, plain
+
+    tcfg = TrainConfig(adamw=AdamWConfig(lr=3e-4, warmup_steps=10,
+                                         total_steps=WHISPER_TRAIN_STEPS))
+    step, _, _, init_state = make_train_step(cfg, tcfg=tcfg, device="cuda")
+    state = init_state(0)
+    bf_batch = dict(batch, enc_frames=batch["enc_frames"].bfloat16())
+    state, _ = step(state, bf_batch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        state, m = step(state, bf_batch)
+        float(m["loss"])
+    step_ms = (time.perf_counter() - t0) / 3 * 1e3
+    del state
+    torch.cuda.empty_cache()
+    tok = WHISPER_TRAIN_B * WHISPER_TRAIN_S
+    print(f"train whisper-small (published widths, {cfg.param_count() / 1e6:.1f}"
+          f"M params) batch {WHISPER_TRAIN_B} x {WHISPER_TRAIN_S} tokens + "
+          f"{WHISPER_FRAMES} frames, bf16, remat full, AdamW [{label}]")
+    print(f"  launch.train: {WHISPER_TRAIN_STEPS} steps in {wall:.2f} s incl. "
+          f"init and the first step; losses {losses[0]:.4f} -> "
+          f"{losses[-1]:.4f}; launches {launches} "
+          f"({launches['flash_attn_fwd'] // WHISPER_TRAIN_STEPS} B2 a step: "
+          f"12 encoder, 24 decoder, 24 recomputed)")
+    print(f"  step {step_ms:.2f} ms = {tok * 1e3 / step_ms:.0f} decoder "
+          f"tokens/s (host clock, ends in a sync); one f32 step kernel vs "
+          f"plain: loss {lk:.7f} vs {lp:.7f}, gradients max abs diff "
+          f"{g_err:.3e}, {n_proj} stacked projection weights nonzero in every "
+          f"layer; 14b "
+          f"{time.perf_counter() - t_phase:.1f} s [{label}]")
+    return launches
+
+
+def examples_14c(label):
+    """Phase 14c: the four example ports on the card at the reference
+    examples' own sizes, each one's launches and wall time."""
+    total = dict.fromkeys(WRAPPERS, 0)
+    runs = [("quickstart", quickstart.main, []),
+            ("constellation_online_learning",
+             constellation_online_learning.main, []),
+            ("serve_batched", serve_batched.main, ["--arch", "smollm_360m"]),
+            ("isl_exchange", isl_exchange.main, [])]
+    for name, fn, argv in runs:
+        for w in WRAPPERS.values():
+            w.launches = 0
+        t0 = time.perf_counter()
+        out = fn(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {n: w.launches for n, w in WRAPPERS.items()}
+        if name == "quickstart":
+            check(len(out["steps"]) == 3
+                  and all(np.isfinite(l) for l, _ in out["steps"])
+                  and launches["split_quant"] == 2 * 3,
+                  f"14c quickstart {out['steps']} {launches}")
+        elif name == "constellation_online_learning":
+            steps = int(out.state.step)
+            check(len(out.records) == 25 and steps > 0
+                  and launches["split_quant"] == 2 * steps
+                  and out.summary()["trained"] > 0,
+                  f"14c ring: {out.summary()} {launches}")
+        elif name == "serve_batched":
+            check(sorted(out) == list(range(6))
+                  and all(len(t) == 10 for t in out.values())
+                  and launches["flash_attn_fwd"] == 2 * 6
+                  and launches["decode_attn"] > 0,
+                  f"14c serve_batched {launches}")
+        else:
+            sync, gossip = out.values()
+            check(sync["wire_bits"] > 10 * gossip["wire_bits"] > 0
+                  and gossip["contacts"] > 0,
+                  f"14c isl_exchange {out}")
+        print(f"  14c {name}: {wall:.2f} s, launches {launches} [{label}]")
+        for n in total:
+            total[n] += launches[n]
+    return total
+
+
 def mixtral_13a(label):
     """Phase 13a: Mixtral-8x7B served split at published widths, 16 of 32
     layers, bf16 weights at rest (serve_full_width's checks), with its
@@ -2491,6 +2861,7 @@ def mixtral_13a(label):
           f"weights {sum(t.numel() * t.element_size() for t in tree_leaves(params)) / 1e9:.2f} GB, shared by "
           f"the split and unsplit engines [{label}]")
     del split, params
+    gc.collect()          # the engines' timed wrappers hold them in cycles
     torch.cuda.empty_cache()
     return launches
 
@@ -2702,6 +3073,20 @@ def main() -> int:
     for dtype in (torch.bfloat16, torch.float32):     # lse at head dim 128
         rows["flash_attn_fwd"].append(check_flash_train(
             dtype, gen, flush, B=1, S=D128_S, H=32, KV=8, D=D128))
+    for dtype in (torch.bfloat16, torch.float32):     # Whisper-small
+        # the encoder (non-causal over its 1,500 frames, with and without
+        # lse, and the Function's gradients), cross-attention at prefill
+        # (64 prompt rows against the frames) and at decode (the fixed
+        # memory, every row at full length)
+        rows["flash_attn_fwd"].append(check_flash_train(
+            dtype, gen, flush, B=1, S=WHISPER_FRAMES, H=WHISPER_H,
+            KV=WHISPER_H, causal=False))
+        rows["flash_attn_fwd"].append(check_prefill(
+            dtype, WHISPER_PROMPT, gen, flush, H=WHISPER_H, KV=WHISPER_H,
+            B=WHISPER_B, Skv=WHISPER_FRAMES, causal=False))
+        rows["decode_attn"].append(check_decode(
+            dtype, gen, flush, H=WHISPER_H, KV=WHISPER_H, S=WHISPER_FRAMES,
+            lens=[WHISPER_FRAMES] * DECODE_B))
     grad_rows = [check_scan_grads(kind, dtype, gen)
                  for kind in ("mamba_scan", "mlstm_scan")
                  for dtype in (torch.bfloat16, torch.float32)]
@@ -2834,6 +3219,16 @@ def main() -> int:
     phase_done(f"phase 13b (Llama-3-8B, InternLM2-20B, Qwen2-VL-7B, "
                f"Phi-3.5-MoE at 2 units); phase 13 took "
                f"{time.perf_counter() - t13:.1f} s")
+    t14 = time.perf_counter()
+    paths["whisper_small_serve"] = whisper_serve_14a(smi)
+    phase_done("phase 14a (Whisper-small, prefill + decode)")
+    paths["whisper_small_train"] = whisper_train_14b(smi)
+    torch.cuda.empty_cache()
+    phase_done("phase 14b (launch.train, Whisper-small)")
+    paths["examples"] = examples_14c(smi)
+    torch.cuda.empty_cache()
+    phase_done(f"phase 14c (the four examples); phase 14 took "
+               f"{time.perf_counter() - t14:.1f} s")
     print(f"launches on the main paths (B1: counted by its wrapper at each "
           f"launch; the device loop is eager, no graph): {paths}")
     launches = {n: sum(p.get(n, 0) for p in paths.values()) for n in WRAPPERS}

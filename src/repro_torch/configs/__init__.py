@@ -13,7 +13,10 @@ Block kinds the port serves: ``attn`` (GQA attention + MLP), ``moe``
 separate MLP), ``shared_attn`` (Zamba2's one attention + MLP block whose
 weights every occurrence shares), and xLSTM's ``mlstm`` (matrix memory)
 and ``slstm`` (scalar recurrence). Whisper's encoder-decoder
-(``enc_dec``) is copied but not served yet.
+(``enc_dec``: an encoder stack over ``frontend_len`` stub frames and
+cross-attention in every decoder block) runs through ``lm.forward``,
+``lm.loss`` and ``lm.decode_step``; as in the reference, the serving
+engines and the split decode refuse it.
 """
 from __future__ import annotations
 

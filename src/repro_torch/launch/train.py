@@ -3,7 +3,10 @@
 Trains an arch (full or smoke config) with the train step of
 :mod:`repro_torch.train.step`: synthetic token shards through
 ``prefetch``, checkpoint/restart through :mod:`repro_torch.ckpt`,
-optional gradient compression. On the card unless ``--device cpu``.
+optional gradient compression. A vision config's step gets a zero
+``frontend_embed`` and an audio config's (Whisper) zero ``enc_frames``,
+(batch, frontend_len, d_model) bf16, as the reference's does. On the
+card unless ``--device cpu``.
 ``--model-parallel`` other than 1 is refused: the reference's model
 sharding is not ported (one card).
 
@@ -15,6 +18,8 @@ from __future__ import annotations
 
 import argparse
 import time
+
+import torch
 
 from repro_torch import ckpt as ckptlib
 from repro_torch import configs, resolve_device
@@ -80,10 +85,18 @@ def main(argv=None):
                          seed=args.seed)
     it = prefetch(shards.iterate(shard=0, start=start), device=device)
 
+    # the front ends' stubs, as the reference hands its step: a zero
+    # vision prefix, or zero encoder frames (Whisper)
+    stub = {"vision": "frontend_embed", "audio": "enc_frames"}.get(
+        cfg.frontend)
+    extra = {} if stub is None else {stub: torch.zeros(
+        (args.batch, cfg.frontend_len, cfg.d_model), dtype=torch.bfloat16,
+        device=device)}
+
     losses = []
     t0 = time.time()
     for i in range(start, args.steps):
-        state, metrics = step(state, next(it))
+        state, metrics = step(state, {**next(it), **extra})
         losses.append(float(metrics["loss"]))
         if (i + 1) % args.log_every == 0:
             dt = time.time() - t0

@@ -1,5 +1,6 @@
 """Model layers: RMSNorm, RoPE and Qwen2-VL's M-RoPE, GQA attention
-(train/prefill and self-attention decode), the SwiGLU/GELU MLP, the
+(self- and cross-attention, train/prefill and decode), the SwiGLU/GELU
+MLP, the
 top-k MoE MLP with capacity dispatch, the Mamba-2 block and xLSTM's
 mLSTM and sLSTM blocks.
 
@@ -30,9 +31,10 @@ class Ctx:
     ``use_pallas``, ``block_q`` and ``block_k`` (TPU kernel choices: the
     card always takes the Hopper kernels, the CPU their plain versions);
     ``mesh`` and ``rules`` (sharding is not ported: one card);
-    ``attn_compute_dtype`` (the port's attention math is f32 already);
-    ``enc_out`` (cross-attention is not ported yet). ``moe_dispatch``
-    picks the MoE layout (:func:`apply_moe`)."""
+    ``attn_compute_dtype`` (the port's attention math is f32 already).
+    ``enc_out`` is Whisper's encoder output, the K/V source of
+    cross-attention at train and prefill; ``moe_dispatch`` picks the MoE
+    layout (:func:`apply_moe`)."""
 
     cfg: Any
     mesh: Any = None
@@ -40,7 +42,7 @@ class Ctx:
     mode: str = "train"                        # train | prefill | decode
     positions: Optional[torch.Tensor] = None   # (B,) decode positions
     rope: Optional[Tuple] = None               # precomputed (cos, sin)
-    enc_out: Optional[torch.Tensor] = None
+    enc_out: Optional[torch.Tensor] = None     # Whisper's cross-attn memory
     act_dtype: torch.dtype = torch.bfloat16
     use_pallas: Optional[bool] = False
     block_q: int = 512
@@ -133,7 +135,9 @@ def apply_rope(x, cos, sin):
 # GQA attention.
 # --------------------------------------------------------------------------
 
-def spec_attention(cfg) -> Dict:
+def spec_attention(cfg, cross: bool = False) -> Dict:
+    """Self-attention's projections; cross-attention (``cross``) has the
+    same four."""
     d, H, KV, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     return {
         "wq": ParamSpec((d, H * dh)),
@@ -143,35 +147,50 @@ def spec_attention(cfg) -> Dict:
     }
 
 
-def apply_attention(p, x, ctx: Ctx, *, causal=True, window=None, cache=None):
+def apply_attention(p, x, ctx: Ctx, *, causal=True, window=None, cache=None,
+                    kv_input=None, use_rope=True, is_cross=False):
     """x: (B, S, d). cache: {'k','v'} (B, KV, S_max, dh) for decode.
 
-    Returns (y, new_cache). At decode the token's K/V are written into
-    ``cache`` in place (the reference returns an updated copy); the
-    returned cache is the same dict. At prefill the new cache holds the
-    sequence's roped K and V, (B, KV, S, dh).
+    Returns (y, new_cache). ``kv_input`` (B, S_kv, d) is the K/V source
+    in place of ``x`` (cross-attention at train and prefill). At
+    self-attention decode the token's K/V are written into ``cache`` in
+    place (the reference returns an updated copy); the returned cache is
+    the same dict. Cross-attention at decode (``is_cross``) reads its
+    cached encoder K/V over every row, projects no K/V and writes
+    nothing. At prefill the new cache holds the sequence's (roped) K and
+    V, or cross-attention's K/V of the encoder memory, (B, KV, S_kv, dh).
+    RoPE applies to self-attention only, when ``use_rope`` and
+    ``ctx.rope`` is set.
     """
     cfg = ctx.cfg
     H, KV, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     B, S, _ = x.shape
     dt = x.dtype
+    decode = ctx.mode == "decode"
 
     q = (x @ p["wq"].to(dt)).reshape(B, S, H, dh)
-    k = (x @ p["wk"].to(dt)).reshape(B, S, KV, dh)
-    v = (x @ p["wv"].to(dt)).reshape(B, S, KV, dh)
-    if ctx.rope is not None:
+    if not (is_cross and decode):
+        src = x if kv_input is None else kv_input.to(dt)
+        k = (src @ p["wk"].to(dt)).reshape(B, src.shape[1], KV, dh)
+        v = (src @ p["wv"].to(dt)).reshape(B, src.shape[1], KV, dh)
+    if use_rope and ctx.rope is not None and not is_cross:
         cos, sin = ctx.rope
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
 
-    if ctx.mode == "decode":
-        pos = ctx.positions                                 # (B,)
+    if decode:
         s_max = cache["k"].shape[2]
-        widx = pos % s_max if window is not None else pos.clamp(max=s_max - 1)
-        bidx = torch.arange(B, device=x.device)
-        cache["k"][bidx, :, widx] = k[:, 0].to(cache["k"].dtype)
-        cache["v"][bidx, :, widx] = v[:, 0].to(cache["v"].dtype)
-        lengths = (pos + 1).clamp(max=s_max).to(torch.int32)
+        if is_cross:       # the fixed encoder memory: every row, no write
+            lengths = torch.full((B,), s_max, dtype=torch.int32,
+                                 device=x.device)
+        else:
+            pos = ctx.positions                             # (B,)
+            widx = (pos % s_max if window is not None
+                    else pos.clamp(max=s_max - 1))
+            bidx = torch.arange(B, device=x.device)
+            cache["k"][bidx, :, widx] = k[:, 0].to(cache["k"].dtype)
+            cache["v"][bidx, :, widx] = v[:, 0].to(cache["v"].dtype)
+            lengths = (pos + 1).clamp(max=s_max).to(torch.int32)
         o = ops.decode_attention(q.transpose(1, 2), cache["k"], cache["v"],
                                  lengths)
         new_cache = cache

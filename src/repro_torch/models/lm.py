@@ -2,7 +2,14 @@
 head. The port of ``repro/models/lm.py`` for the block kinds ``attn``,
 ``moe``, ``mamba2``, ``shared_attn``, ``mlstm`` and ``slstm`` (dense
 models, the MoE models, Qwen2-VL's backbone with M-RoPE and its vision
-prefix, Zamba2 and xLSTM). Whisper's encoder-decoder is not ported yet.
+prefix, Zamba2 and xLSTM) and for Whisper's encoder-decoder
+(``cfg.enc_dec``): an encoder stack over ``enc_frames`` (``enc_units``,
+``enc_norm``), sinusoid positions in place of RoPE, and a cross-attention
+sub-block (``norm_x``, ``cross``) in every decoder block, whose decode
+cache ``cross`` holds the encoder memory's K/V, fixed after the prefill.
+As in the reference, enc-dec is served through ``forward(mode=
+"prefill")``, ``cache_from_prefill`` and ``decode_step`` only: the split
+decode and the engines refuse it.
 
 Parameters are nested dicts of tensors in the reference's tree layout:
 ``units`` holds one entry per non-shared block of the pattern unit,
@@ -35,6 +42,7 @@ Entry points:
   init_cache / cache_from_prefill   decode caches
   decode_step                       one token vs the caches
   split_serve_params / decode_step_split   the same, cut at a unit
+                                    (not for enc-dec)
   n_blocks / forward_segment        SL split execution of blocks [lo, hi)
 """
 from __future__ import annotations
@@ -61,18 +69,22 @@ RECURRENT = {"mamba2": ("mamba", L.spec_mamba2, L.apply_mamba2),
 
 def _check_served(cfg):
     unit = cfg.pattern_unit()
-    if not set(unit) <= set(SERVED_KINDS) or cfg.enc_dec:
+    if not set(unit) <= set(SERVED_KINDS):
         raise NotImplementedError(
-            f"{cfg.name}: the port serves block kinds {SERVED_KINDS} without "
-            f"enc-dec (pattern {unit})")
+            f"{cfg.name}: the port serves block kinds {SERVED_KINDS} "
+            f"(pattern {unit})")
 
 
-def _check_frontend(enc_frames):
-    """The audio front end belongs to the enc-dec architecture
-    :func:`_check_served` refuses; given anyway, it raises."""
-    if enc_frames is not None:
-        raise NotImplementedError("enc_frames: the audio front end (the "
-                                  "encoder) is not ported")
+def _refuse_split_enc_dec(cfg):
+    if cfg.enc_dec:
+        raise NotImplementedError("split serving does not cover enc-dec "
+                                  "(whisper) architectures")
+
+
+def _enc_cfg(cfg):
+    """The encoder's config: the decoder's widths, bidirectional, no
+    cross-attention."""
+    return dataclasses.replace(cfg, enc_dec=False, causal=False)
 
 
 # --------------------------------------------------------------------------
@@ -85,6 +97,9 @@ def _block_spec(cfg, kind: str) -> Dict:
         sub, spec_fn, _ = RECURRENT[kind]
         return {"norm1": L.spec_rmsnorm(d), sub: spec_fn(cfg)}
     spec = {"norm1": L.spec_rmsnorm(d), "attn": L.spec_attention(cfg)}
+    if cfg.enc_dec:
+        spec["norm_x"] = L.spec_rmsnorm(d)
+        spec["cross"] = L.spec_attention(cfg, cross=True)
     if cfg.d_ff:
         spec["norm2"] = L.spec_rmsnorm(d)
         spec["mlp"] = L.spec_moe(cfg) if kind == "moe" else L.spec_mlp(cfg)
@@ -100,17 +115,22 @@ def _unit_spec(cfg) -> Dict:
 def abstract_params(cfg) -> Dict:
     _check_served(cfg)
     d, V = cfg.d_model, cfg.vocab
-    stack = lambda s: ParamSpec((cfg.n_units,) + s.shape, s.init, s.scale,
-                                s.dtype)
+    stack = lambda n: lambda s: ParamSpec((n,) + s.shape, s.init, s.scale,
+                                          s.dtype)
     tree: Dict[str, Any] = {
         "embed": ParamSpec((V, d), "embed"),
-        "units": map_tree(stack, _unit_spec(cfg)),
+        "units": map_tree(stack(cfg.n_units), _unit_spec(cfg)),
         "final_norm": L.spec_rmsnorm(d),
     }
     if "shared_attn" in cfg.pattern_unit():
         tree["shared"] = _block_spec(cfg, "shared_attn")
     if not cfg.tie_embeddings:
         tree["head"] = ParamSpec((d, V))
+    if cfg.enc_dec:
+        tree["enc_units"] = map_tree(
+            stack(cfg.n_enc_layers),
+            {"0:attn": _block_spec(_enc_cfg(cfg), "attn")})
+        tree["enc_norm"] = L.spec_rmsnorm(d)
     return tree
 
 
@@ -154,10 +174,19 @@ def _apply_block(cfg, kind: str, p, x, ctx: L.Ctx, cache):
             new_cache[sub] = nc
         return x, new_cache, None
     h, nc = L.apply_attention(p["attn"], xn, ctx, causal=cfg.causal,
-                              window=cfg.window, cache=cache.get("attn"))
+                              window=cfg.window, cache=cache.get("attn"),
+                              use_rope=not cfg.enc_dec)
     x = x + h
     if nc is not None:
         new_cache["attn"] = nc
+    if cfg.enc_dec and "cross" in p:
+        h, nc = L.apply_attention(
+            p["cross"], L.rmsnorm(p["norm_x"], x, cfg.norm_eps), ctx,
+            causal=False, cache=cache.get("cross"), kv_input=ctx.enc_out,
+            use_rope=False, is_cross=True)
+        x = x + h
+        if nc is not None:
+            new_cache["cross"] = nc
     aux = None
     if cfg.d_ff:
         xn = L.rmsnorm(p["norm2"], x, cfg.norm_eps)
@@ -191,11 +220,51 @@ def _embed_tokens(params, tokens, act_dtype):
     return params["embed"][tokens].to(act_dtype)
 
 
+def _sinusoid_at(positions, d: int):
+    """Rows ``positions`` (int, any device) of the reference's f32 table
+    ``_sinusoid``: [sin(pos / 10000^(2i/d)), cos(...)], i < d/2, (N, d)
+    f32. The power is taken in f64 and rounded once to f32, as the
+    reference's f32 power rounds it (but at one frequency of d = 768,
+    where XLA's is an ulp off); a row depends on its position only, so
+    this equals the table's rows without building the table (2^17 rows
+    at decode in the reference, 402 MB at d = 768)."""
+    dev = positions.device
+    expo = 2.0 * torch.arange(d // 2, dtype=torch.float32, device=dev) / d
+    denom = torch.pow(torch.tensor(10000.0, dtype=torch.float64, device=dev),
+                      expo.double()).float()
+    ang = positions.float()[:, None] / denom[None, :]
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
+def _sinusoid(S: int, d: int, device=None):
+    """The reference's absolute position table, (S, d) f32."""
+    return _sinusoid_at(torch.arange(S, device=device), d)
+
+
+def _run_encoder(cfg, params, enc_frames, ctx: L.Ctx):
+    """Whisper's encoder over (stub) frame embeddings (B, S_enc, d):
+    frames in the activation dtype plus the sinusoid, the encoder units
+    (bidirectional self-attention + MLP, no RoPE, never checkpointed, as
+    the reference's encoder scan is not), then ``enc_norm``."""
+    S = enc_frames.shape[1]
+    x = enc_frames.to(ctx.act_dtype) + \
+        _sinusoid(S, cfg.d_model, enc_frames.device).to(ctx.act_dtype)[None]
+    enc_cfg = _enc_cfg(cfg)
+    ectx = dataclasses.replace(ctx, cfg=enc_cfg, mode="train", rope=None)
+    for u in range(cfg.n_enc_layers):
+        x, _, _ = _apply_unit(enc_cfg, _unit(params["enc_units"], u), None,
+                              x, ectx, None)
+    return L.rmsnorm(params["enc_norm"], x, cfg.norm_eps)
+
+
 def _rope_for(cfg, batch: int, seq: int, device, positions=None,
               frontend_len: int = 0):
     """cos/sin tables. positions: (B,) decode positions or None (0..S).
     M-RoPE: (3, B, S) ids with a vision prefix of ``frontend_len`` grid
-    positions, or each decode position in all three sections."""
+    positions, or each decode position in all three sections. None for
+    enc-dec (Whisper takes absolute sinusoid positions instead)."""
+    if cfg.enc_dec:
+        return None
     if cfg.mrope:
         if positions is None:
             ids = L.text_mrope_positions(batch, seq, frontend_len,
@@ -243,11 +312,14 @@ def forward(cfg, params, tokens, *, ctx: L.Ctx, frontend_embed=None,
     axis (module docstring). A vision config (``frontend == "vision"``)
     given ``frontend_embed`` (B, frontend_len, d) takes it in place of
     the first ``frontend_len`` token embeddings, and its M-RoPE gives
-    those positions grid ids. ``remat`` (none | full | dots) sets what
-    the backward recomputes; ``unroll`` is accepted and ignored.
+    those positions grid ids. An enc-dec config needs ``enc_frames``
+    (B, S_enc, d): the encoder runs over them once (not checkpointed)
+    and every decoder block's cross-attention reads its output; a
+    decoder-only config ignores them, as the reference does. ``remat``
+    (none | full | dots) sets what the decoder's backward recomputes;
+    ``unroll`` is accepted and ignored.
     """
     _check_served(cfg)
-    _check_frontend(enc_frames)
     if remat not in REMAT:
         raise ValueError(f"remat must be one of {REMAT}, got {remat!r}")
     B, S = tokens.shape
@@ -257,6 +329,13 @@ def forward(cfg, params, tokens, *, ctx: L.Ctx, frontend_embed=None,
         n_front = cfg.frontend_len
         x = torch.cat([frontend_embed.to(ctx.act_dtype), x[:, n_front:]],
                       dim=1)
+    if cfg.enc_dec:
+        if enc_frames is None:
+            raise ValueError(f"{cfg.name} is an encoder-decoder: forward "
+                             f"needs enc_frames (B, frames, d_model)")
+        x = x + _sinusoid(S, cfg.d_model, x.device).to(ctx.act_dtype)[None]
+        ctx = dataclasses.replace(
+            ctx, enc_out=_run_encoder(cfg, params, enc_frames, ctx))
     ctx = dataclasses.replace(ctx, rope=_rope_for(
         cfg, B, S, tokens.device, frontend_len=n_front))
     shared = params.get("shared")
@@ -332,9 +411,12 @@ def _block_cache_shapes(cfg, kind: str, batch: int, s_max: int, act_dtype,
         return {"slstm": tuple(zeros((batch, d), torch.float32).fill_(
             -1e30 if i == 3 else 0.0) for i in range(4))}
     s_eff = min(cfg.window, s_max) if cfg.window else s_max
-    shape = (batch, cfg.n_kv_heads, s_eff, cfg.head_dim)
-    return {"attn": {"k": zeros(shape, act_dtype),
-                     "v": zeros(shape, act_dtype)}}
+    kv = lambda s: {n: zeros((batch, cfg.n_kv_heads, s, cfg.head_dim),
+                             act_dtype) for n in ("k", "v")}
+    out = {"attn": kv(s_eff)}
+    if cfg.enc_dec:                      # the encoder memory's K/V
+        out["cross"] = kv(cfg.frontend_len)
+    return out
 
 
 def init_cache(cfg, batch: int, s_max: int, act_dtype, device) -> Dict:
@@ -353,7 +435,9 @@ def cache_from_prefill(cfg, caches, s_max: int, act_dtype=torch.bfloat16):
     since decode updates the cache in place; full-attention K/V pad to
     s_max; sliding-window K/V scatter the last
     ``window`` positions into their ring slots (slot = pos % window),
-    matching the decode write index."""
+    matching the decode write index. Cross-attention's K/V (the fixed
+    encoder memory) are copied in ``act_dtype``, with no ring and no
+    pad."""
     def ring(kv):
         U, B, KV, S, dh = kv.shape
         s_eff = min(cfg.window, s_max) if cfg.window else s_max
@@ -364,9 +448,14 @@ def cache_from_prefill(cfg, caches, s_max: int, act_dtype=torch.bfloat16):
         out[:, :, :, slots, :] = kv[:, :, :, S - take:, :].to(act_dtype)
         return out
 
-    return {key: {sub: ({kk: ring(vv) for kk, vv in val.items()}
-                        if sub == "attn" else map_tree(torch.clone, val))
-                  for sub, val in blk.items()}
+    def convert(sub, val):
+        if sub == "attn":
+            return {kk: ring(vv) for kk, vv in val.items()}
+        if sub == "cross":
+            return map_tree(lambda a: a.to(act_dtype, copy=True), val)
+        return map_tree(torch.clone, val)
+
+    return {key: {sub: convert(sub, val) for sub, val in blk.items()}
             for key, blk in caches.items()}
 
 
@@ -393,10 +482,15 @@ def decode_step(cfg, params, cache, tokens, positions, *, ctx: L.Ctx,
 
     Returns (logits (B, 1, V) fp32, cache). The cache is updated in place
     (the reference returns an updated copy); the same dict is returned.
-    ``unroll`` is accepted and ignored.
+    An enc-dec config adds each position's sinusoid row to the token
+    embedding (the reference gathers it from a table of 2^17 rows) and
+    reads the cross cache as it is. ``unroll`` is accepted and ignored.
     """
     _check_served(cfg)
     x = _embed_tokens(params, tokens, ctx.act_dtype)
+    if cfg.enc_dec:
+        x = x + _sinusoid_at(positions, cfg.d_model)[:, None].to(
+            ctx.act_dtype)
     x = _decode_units(cfg, params, cache, x, _decode_ctx(cfg, ctx, positions))
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
     return _head(cfg, params, x), cache
@@ -414,12 +508,14 @@ def split_serve_params(cfg, params, cut_units: int):
     ``[cut, U)``, the final norm and the head (for tied embeddings the
     ground keeps its own reference to the embedding matrix). Zamba2's
     shared block goes to both halves, as it is applied inside units on
-    each side. Unit leaves are views of ``params``.
+    each side. Unit leaves are views of ``params``. Enc-dec (Whisper)
+    raises NotImplementedError, as in the reference.
     """
     if not 1 <= cut_units <= cfg.n_units - 1:
         raise ValueError(f"cut_units must be in [1, {cfg.n_units - 1}], "
                          f"got {cut_units}")
     _check_served(cfg)
+    _refuse_split_enc_dec(cfg)
     pa = {"embed": params["embed"],
           "units": map_tree(lambda a: a[:cut_units], params["units"])}
     pb = {"units": map_tree(lambda a: a[cut_units:], params["units"]),
@@ -443,8 +539,9 @@ def decode_step_split(cfg, params_sat, params_gnd, cache, tokens, positions,
     unit slices in place. Returns ``(logits (B, 1, V) fp32, cache,
     boundary)`` where ``boundary`` is the activation ``(B, 1, d_model)``
     that crosses the satellite->ground downlink. ``unroll`` is accepted
-    and ignored.
+    and ignored. Enc-dec raises NotImplementedError (no split params).
     """
+    _refuse_split_enc_dec(cfg)
     cut = _n_units(params_sat)
     x = _embed_tokens(params_sat, tokens, ctx.act_dtype)
     dctx = _decode_ctx(cfg, ctx, positions)
@@ -469,7 +566,10 @@ def forward_segment(cfg, params, x, lo: int, hi: int, *, ctx: L.Ctx,
     """Apply blocks [lo, hi). lo == 0 consumes ``tokens`` via the
     embedding; hi == n_blocks applies the final norm and the head (f32
     logits). ``unit_offset``: params["units"] holds units starting at this
-    index (segment trees are slices of the full stacked tree)."""
+    index (segment trees are slices of the full stacked tree). On an
+    enc-dec config this computes what the reference's does: no sinusoid,
+    and with no ``ctx.enc_out`` each cross-attention reads the decoder's
+    own states."""
     _check_served(cfg)
     pat = cfg.pattern_unit()
     if lo == 0:

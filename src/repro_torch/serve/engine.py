@@ -75,11 +75,20 @@ class Request:
 class DecodeEngine:
     """Greedy decoding over ``n_slots`` concurrent requests on ``device``.
     ``use_pallas`` (the reference's TPU-kernel switch) is accepted and
-    ignored: the card always takes the Hopper kernels."""
+    ignored: the card always takes the Hopper kernels. An enc-dec config
+    (Whisper) is refused: its requests carry encoder frames that a
+    prompt of tokens has not, and the reference serves it only through
+    ``lm.forward(mode="prefill")`` + ``lm.decode_step``."""
 
     def __init__(self, cfg, params, *, n_slots: int = 4, s_max: int = 512,
                  act_dtype=torch.bfloat16, use_pallas: bool = False,
                  prefill: str = "bulk", device="cuda"):
+        if cfg.enc_dec:
+            raise NotImplementedError(
+                f"{cfg.name}: the serving engines do not cover enc-dec "
+                f"(whisper) architectures; serve it with lm.forward(mode="
+                f"'prefill', enc_frames=...), lm.cache_from_prefill and "
+                f"lm.decode_step")
         if prefill not in ("bulk", "loop"):
             raise ValueError(f"prefill must be 'bulk' or 'loop', "
                              f"got {prefill!r}")

@@ -8,7 +8,8 @@ caches, one decode step and one split decode step, ``forward_segment``,
 vision prefix), Mixtral's sliding-window decode ring wrapping, both MoE
 dispatch layouts, the serving and training CLIs at smoke size, the
 parameter counts and ``lm_plan``, and the ten assigned configs at their
-published widths. Whisper (enc-dec) is still refused."""
+published widths. What of Whisper (enc-dec) stays refused: split serving
+and the engines (tests/test_torch_whisper.py holds the rest)."""
 import dataclasses
 
 import jax
@@ -423,12 +424,20 @@ def test_mixtral_published_layer_and_depth_cut():
 
 
 def test_whisper_is_still_refused():
+    """What of Whisper stays refused, as in the reference: split serving
+    and the serving engines. Its parameters and decode caches are built
+    (tests/test_torch_whisper.py holds them to the reference)."""
+    from repro_torch.serve.engine import DecodeEngine
     cfg = configs.get_smoke("whisper_small")
     assert cfg.enc_dec
+    params = lm.init(cfg, torch.Generator().manual_seed(0))
+    assert "enc_units" in params and "cross" in params["units"]["0:attn"]
+    cache = lm.init_cache(cfg, 1, 8, torch.float32, "cpu")
+    assert set(cache["0:attn"]) == {"attn", "cross"}
     with pytest.raises(NotImplementedError, match="enc-dec"):
-        lm.abstract_params(cfg)
+        lm.split_serve_params(cfg, params, 1)
     with pytest.raises(NotImplementedError, match="enc-dec"):
-        lm.init_cache(cfg, 1, 8, torch.float32, "cpu")
+        DecodeEngine(cfg, params, n_slots=1, s_max=8, device="cpu")
 
 
 def test_engine_casts_the_router_and_keeps_the_norms_f32():

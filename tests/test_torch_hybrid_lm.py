@@ -169,17 +169,26 @@ def test_split_rejects_bad_cut(model):
 
 @pytest.mark.parametrize("refused", ["enc_dec", "enc_frames"])
 def test_unported_blocks_raise(model, refused):
-    """What the port still refuses: Whisper's encoder-decoder, and
-    encoder frames given to ``forward`` (MoE blocks and M-RoPE are
-    served, tests/test_torch_assigned_lm.py)."""
+    """What the port once refused, now as the reference does it: an
+    enc-dec variant of the hybrid config builds the reference's tree
+    (cross-attention in the shared block, an encoder stack), and encoder
+    frames given to a decoder-only config are ignored."""
     if refused == "enc_dec":
-        cfg = dataclasses.replace(model["cfg"], enc_dec=True)
-        with pytest.raises(NotImplementedError):
-            lm.abstract_params(cfg)
+        cfg = dataclasses.replace(model["cfg"], enc_dec=True, n_enc_layers=1)
+        jcfg = dataclasses.replace(model["jcfg"], enc_dec=True,
+                                   n_enc_layers=1)
+        got = {n: s.shape for n, s in
+               tree_flatten_with_names(lm.abstract_params(cfg))}
+        want = {n: s.shape for n, s in
+                tree_flatten_with_names(jlm.abstract_params(jcfg))}
+        assert got == want and "shared.cross.wq" in got
+        assert "units.0:mamba2.cross.wq" not in got
         return
     cfg = model["cfg"]
     frames = torch.zeros((2, 4, cfg.d_model))
-    with pytest.raises(NotImplementedError):
-        lm.forward(cfg, model["params"], torch.from_numpy(model["tokens"]),
-                   ctx=Ctx(cfg=cfg, act_dtype=torch.float32),
-                   enc_frames=frames)
+    ctx = Ctx(cfg=cfg, act_dtype=torch.float32)
+    tokens = torch.from_numpy(model["tokens"])
+    got, _, _ = lm.forward(cfg, model["params"], tokens, ctx=ctx,
+                           enc_frames=frames)
+    want, _, _ = lm.forward(cfg, model["params"], tokens, ctx=ctx)
+    torch.testing.assert_close(got, want, atol=0, rtol=0)
