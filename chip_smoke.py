@@ -123,7 +123,18 @@ Phases, each fatal on failure:
      published widths, 2 units each (f32 weights), split at unit 1: 8
      prefills and 8 decode steps with every kernel call held to its
      plain version, exact counts, split == unsplit, f32 logits kernel vs
-     plain, and Qwen2-VL's 256-patch vision prefix.
+     plain, and Qwen2-VL's 256-patch vision prefix;
+ 15. the dry run against the card (repro_torch.launch.dryrun and the
+     census, repro_torch.utils.census): (a) full-width SmolLM-360M's
+     train step (phase 12a's 8 x 512, bf16, remat full, AdamW), a
+     498-token prefill and a decode step at 8 slots over a full 2,048-row
+     cache, (b) Zamba2-1.2B's prefill and decode step, (c) xLSTM-1.3B's
+     64-token prefill, each counted under the census on the card and on
+     meta: equal FLOPs, bytes, op counts and kernel launches, the
+     census's peak within 10% of the step's max_memory_allocated rise,
+     the step's time against the dry run's bound (the roofline fraction
+     on this card); (d) the dry run's SmolLM sweep and its roofline
+     table.
 Phase 3 also holds B2's lse and its autograd Function at SmolLM's
 training shape (the plain backward timed beside SDPA's forward +
 backward), and the scans' Functions at full-width heads (gradients bit
@@ -183,6 +194,8 @@ from repro_torch.models.param import init_params, map_tree  # noqa: E402
 from repro_torch.obs.ring import EV_EXCHANGE, EV_SERVE  # noqa: E402
 from repro_torch.train.optimizer import resolve_optimizer  # noqa: E402
 from repro_torch.utils.bucketing import bucket_size  # noqa: E402
+from repro_torch.utils.census import Census  # noqa: E402
+from repro_torch.configs.shapes import ShapeSpec  # noqa: E402
 from repro_torch.utils.treeutil import (tree_flatten_with_names,  # noqa: E402
                                        tree_leaves)
 from repro_torch.models.layers import Ctx  # noqa: E402
@@ -198,7 +211,9 @@ from repro_torch.serve_fleet.engine import (  # noqa: E402
     assert_host_parity, serve_cost)
 from repro_torch.serve_fleet.traffic import (PassWindowTraffic,  # noqa: E402
                                              TrafficConfig)
-from repro_torch.launch import paper_tables  # noqa: E402
+from repro_torch.launch import dryrun, paper_tables  # noqa: E402
+from repro_torch.launch import mesh as h100  # noqa: E402
+from repro_torch.launch import roofline as roofline_report  # noqa: E402
 from repro_torch.launch import train as launch_train  # noqa: E402
 from repro_torch.launch import (constellation_online_learning,  # noqa: E402
                                 isl_exchange, quickstart, serve_batched)
@@ -215,8 +230,9 @@ from repro_torch.sim import (ACTION_NAMES, ACTION_SHED,  # noqa: E402
 from repro_torch.sim.device_sim import ACTION_FAULT  # noqa: E402
 
 # Published H100 SXM peaks (NVIDIA data sheet; dense, at 700 W).
-HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+HBM_BYTES_PER_S = h100.HBM_BW
+PEAK_OPS = {torch.bfloat16: h100.PEAK_FLOPS_BF16,
+            torch.float32: h100.PEAK_FLOPS_F32}
 TOL = {torch.bfloat16: 2e-2, torch.float32: 2e-5}    # as the CPU tests
 H, KV, D = 15, 5, 64                                 # SmolLM-360M heads
 MHA_H = 32                                           # Zamba2-1.2B: H = KV
@@ -338,6 +354,15 @@ WHISPER_B2_PER_TRAIN_STEP = 60
 # prefill-then-decode against the full forward (f32, kernel path), the
 # tolerance of tests/test_decode_parity.py::test_prefill_then_decode
 DECODE_PARITY_TOL = 2e-3
+# Phase 15: the dry run (repro_torch.launch.dryrun, on meta) against the
+# same step counted on the card: SmolLM-360M's train step at phase 12a's
+# shape, a 498-token prefill and a decode step at phase 4's 8 slots over
+# a full 2,048-row cache (the dry run counts a decode cell's cache full);
+# Zamba2-1.2B's prefill and decode step; xLSTM-1.3B's 64-token prefill.
+# Census peak against the step's max_memory_allocated rise within 10%.
+P15_PREFILL_S, P15_XLSTM_S = 498, 64
+P15_PEAK_TOL = 0.10
+P15_TIMED = {"train": 3, "prefill": 5, "decode": 10}
 
 
 def check(ok, what):
@@ -387,12 +412,8 @@ def check_prefill(dtype, S, gen, flush, H=H, KV=KV, D=D, window=None,
                                rtol=TOL[dtype])
     del want
     kx, vx = k.repeat_interleave(H // KV, 1), v.repeat_interleave(H // KV, 1)
-    # the (q, k) pairs of the causal band, within the window if any; all
-    # of them without the band
-    w = S if window is None else min(window, S)
-    pairs = (w * (w + 1) // 2 + (S - w) * w) if causal else S * Skv
-    b_ms, b_by = bound((2 * q.numel() + 2 * k.numel()) * q.element_size(),
-                       4 * D * H * B * pairs, dtype)
+    b_ms, b_by = bound(*flash_attn.work(q, k, causal=causal, window=window),
+                       dtype)
     if window is None:
         sdpa = lambda: F.scaled_dot_product_attention(q, kx, vx,
                                                       is_causal=causal)
@@ -438,10 +459,7 @@ def check_decode(dtype, gen, flush, H=H, KV=KV, D=D, S=DECODE_S,
     kx, vx = k.repeat_interleave(H // KV, 1), v.repeat_interleave(H // KV, 1)
     mask = (torch.arange(S, device=dev)[None, :]
             < lengths[:, None])[:, None, None, :]
-    rows = sum(lens)
-    b_ms, b_by = bound(2 * q.numel() * q.element_size() + 4 * len(lens)
-                       + 2 * rows * KV * D * k.element_size(),
-                       4 * D * H * rows, dtype)
+    b_ms, b_by = bound(*decode_attn.work(q, k, sum(lens)), dtype)
     return dict(
         shape=f"decode B={DECODE_B} H={H} KV={KV} s_max={S} D={D} "
               f"lengths={lens} {str(dtype)[6:]}", max_abs_err=err,
@@ -502,13 +520,7 @@ def check_quant(label, x, fused, flush):
           f"{what}: xhat strides {got[0].stride()} != x's {x.stride()}")
     err = max((g.float() - w.float()).abs().max().item()
               for g, w in zip(got, want))
-    n, rows = x.numel(), x.numel() // x.shape[-1]
-    # read x once; write xhat in x's dtype, or the int8 codes and the f32
-    # scales, once; about six f32 operations per element (abs, max,
-    # divide, round, 2 clips)
-    out_bytes = n * x.element_size() if fused else n + 4 * rows
-    b_ms, b_by = bound(n * x.element_size() + out_bytes, 6 * n,
-                       torch.float32)
+    b_ms, b_by = bound(*split_quant.work(x, fused), torch.float32)
     dst = torch.empty_like(x)
     return dict(
         shape=f"{entry.__name__} {label}", max_abs_err=err,
@@ -517,18 +529,6 @@ def check_quant(label, x, fused, flush):
         device=device_ms(lambda: entry(x), flush),
         copy_ms=sum(ms for *_, ms in device_ms(lambda: dst.copy_(x), flush)),
         library_ms=None, bound_ms=b_ms, bound_by=b_by)
-
-
-def mamba_work(B, S, H, P, N, chunk, elt):
-    """Bytes and operations of one SSD chunked scan: x, b, c, dt and
-    a_log read once, y and the f32 final state written once; per head,
-    the L x L products c.b^T and M x (2 S L (N + P)) and the inter-chunk
-    and state-update contractions (4 S P N), without causal skipping."""
-    L = min(chunk, S)
-    nbytes = (2 * B * S * H * P * elt + 2 * B * S * N * elt + 4 * B * S * H
-              + 4 * H + 4 * B * H * P * N)
-    nops = B * H * (2 * S * L * (N + P) + 4 * S * P * N)
-    return nbytes, nops
 
 
 def check_mamba(dtype, B, S, gen, flush):
@@ -550,7 +550,7 @@ def check_mamba(dtype, B, S, gen, flush):
     torch.testing.assert_close(h, hp, atol=tol, rtol=tol)
     err = max((y.float() - yp.float()).abs().max().item(),
               (h - hp).abs().max().item())
-    nbytes, nops = mamba_work(B, S, Hm, P, N, MAMBA_CHUNK, x.element_size())
+    nbytes, nops = mamba_scan.work(*args, chunk=MAMBA_CHUNK)
     b_ms, b_by = bound(nbytes, nops, dtype)
     run = lambda: mamba_scan.mamba_chunk_scan(*args, chunk=MAMBA_CHUNK)
     return dict(
@@ -562,20 +562,6 @@ def check_mamba(dtype, B, S, gen, flush):
         stages=device_ms(run, flush) if dtype == torch.bfloat16 else None,
         library_ms=None, bound_ms=b_ms, bound_by=b_by,
         bytes=nbytes, ops=nops)
-
-
-def mlstm_work(B, S, H, P, elt):
-    """Bytes and operations of one mLSTM chunkwise scan at the kernel's
-    chunk L = min(64, S): q, k, v, i_pre, f_pre read once, h and the f32
-    final state (C, n, m) written once; per head and position, q.k^T and
-    W v over the chunk (4 L P, the full L x L block, no causal
-    skipping), q C_prev and the C update (4 P^2), q.n and the n update
-    (4 P)."""
-    L = min(mlstm_scan.L_MAX, S)
-    nbytes = (4 * B * S * H * P * elt + 2 * 4 * B * S * H
-              + 4 * B * H * (P * P + P + 1))
-    nops = B * H * S * (4 * L * P + 4 * P * P + 4 * P)
-    return nbytes, nops
 
 
 def check_mlstm(dtype, B, S, gen, flush):
@@ -604,7 +590,7 @@ def check_mlstm(dtype, B, S, gen, flush):
                                    rtol=MLSTM_STATE_TOL)
     err = max((a.float() - b.float()).abs().max().item() for a, b in (
         (h, hp), (C, Cp), (n[..., 0], np_), (m, mp)))
-    nbytes, nops = mlstm_work(B, S, Hx, P, q.element_size())
+    nbytes, nops = mlstm_scan.work(*args, chunk=MLSTM_CHUNK)
     b_ms, b_by = bound(nbytes, nops, dtype)
     run = lambda: mlstm_scan.mlstm_chunk_scan(*args, chunk=MLSTM_CHUNK)
     return dict(
@@ -633,8 +619,12 @@ SERVED = {
                         per_prompt={"mamba_scan": 30, "flash_attn_fwd": 6},
                         per_step={"decode_attn": 6}),
 }
+# Its prefill profile takes one prefill, not three: a 498-token prefill
+# is ~20,900 kernels (the sLSTM loop), and three of them (with retakes)
+# took phase 7 to 270 s on a slow host.
 SERVED["xlstm_1_3b"] = dict(dims=(48, 2048, 50304), cut=3,
-                            per_prompt={"mlstm_scan": 42}, per_step={})
+                            per_prompt={"mlstm_scan": 42}, per_step={},
+                            profiled_prefills=1)
 # Phase 11a: Granite-3.0-2B (the serving fleet's model, as the reference
 # smoke serves it), 40 attention layers, split at n_units // 2 = 20.
 SERVED["granite_3_2b"] = dict(dims=(40, 2048, 49155), cut=20,
@@ -976,7 +966,8 @@ def serve_full_width(arch, label):
           + (f"; f32 logits on {cfg32.n_layers} layers of f32 weights at "
              f"the same widths" if cfg32 is not cfg else ""))
     profile_decode(split, label)
-    profile_calls(lambda: split._prefill(prompts[int(np.argmax(plens))]), 3,
+    profile_calls(lambda: split._prefill(prompts[int(np.argmax(plens))]),
+                  spec.get("profiled_prefills", 3),
                   f"prefills of {longest.shape[1]} tokens", label)
     return launches, split, params
 
@@ -993,9 +984,12 @@ def cuda_events(run, whole=None, retake=True):
     a few xLSTM prefills took a minute or more to parse). It is taken
     again, each time of a new ``run()``, up to 3 traces, while no marker
     is left before or after every other kernel or ``whole(kernels)`` is
-    false; with ``retake`` false (a revolution, which a new run would
-    advance) it is taken once and a missing frame reported. The last
-    trace is returned as it is, for the caller's checks to judge."""
+    false; with ``retake`` false it is taken once and a missing frame
+    reported: a revolution, which a new run would advance, and the
+    profiles of whole calls, steps and runs (phases 4-14), whose traces
+    of thousands of kernels take seconds to read and whose retakes have
+    lost their leading markers as well on the H100 so far. The
+    last trace is returned as it is, for the caller's checks to judge."""
     from torch.profiler import ProfilerActivity, profile
     acts = [ProfilerActivity.CUDA]
     cuda = torch.autograd.DeviceType.CUDA
@@ -1037,7 +1031,7 @@ def profile_calls(fn, n, what, label):
     def run():
         for _ in range(n):
             fn()
-    kern = cuda_events(run)
+    kern = cuda_events(run, retake=False)
     dev_us = lambda e: getattr(e, "self_device_time_total", 0)
     busy = sum(dev_us(e) for e in kern) / n / 1e3
     if busy == 0:
@@ -2100,7 +2094,7 @@ def granite_serving_fleet_11a(label):
         fleet.run(100)                      # ends in its one host sync
         host.append((time.perf_counter() - t) * 1e3)
 
-    kern = cuda_events(framed)
+    kern = cuda_events(framed, retake=False)
     host_ms = host[-1]
     busy = sum(getattr(e, "self_device_time_total", 0) for e in kern) / 1e3
     n_kern = sum(e.count for e in kern)
@@ -2190,14 +2184,9 @@ def check_flash_train(dtype, gen, flush, B=TRAIN_B, S=TRAIN_S, H=H, KV=KV,
     def sdpa_fwd_bwd():
         out = F.scaled_dot_product_attention(sq, sk, sv, is_causal=causal)
         torch.autograd.grad(out, (sq, sk, sv), do)
-    pairs = S * (S + 1) // 2 if causal else S * S
-    elt = q.element_size()
-    b_ms, b_by = bound((2 * q.numel() + 2 * k.numel()) * elt
-                       + 4 * B * H * S, 4 * D * H * B * pairs, dtype)
-    # the backward reads q, k, v, o, dO and lse and writes dq, dk, dv;
-    # it recomputes S and takes dP, dV, dQ and dK: 10 D operations a pair
-    bb_ms, bb_by = bound((4 * q.numel() + 4 * k.numel()) * elt + 4 * B * H * S,
-                         10 * D * H * B * pairs, dtype)
+    b_ms, b_by = bound(*flash_attn.work(q, k, causal=causal, lse=True),
+                       dtype)
+    bb_ms, bb_by = bound(*flash_attn.bwd_work(q, k, causal=causal), dtype)
     return dict(
         shape=f"train B={B} H={H} KV={KV} S={S} D={D}"
               + ("" if causal else " non-causal") + f" {str(dtype)[6:]}, "
@@ -2337,7 +2326,7 @@ def lm_train_12a(label):
             state, m = step(state, batch)
             float(m["loss"])
         host.append((time.perf_counter() - t) * 1e3 / 2)
-    kern = cuda_events(framed)
+    kern = cuda_events(framed, retake=False)
     busy = sum(getattr(e, "self_device_time_total", 0) for e in kern) / 2e3
     check(0 < busy <= host[-1], f"12a: card {busy} ms in {host[-1]} ms")
     tok = TRAIN_B * TRAIN_S
@@ -2998,6 +2987,134 @@ def two_unit_13b(arch, label):
     return launches
 
 
+def census_vs_dry_run(cfg, shape, tcfg, params, batch, label):
+    """Phase 15: one step of ``shape`` under the census on the card
+    against the dry run on meta at the same shape and config: FLOPs,
+    bytes, op counts and each kernel's launches equal (and the wrappers'
+    own counters moved by as much: the kernels ran); the census's peak
+    beside the step's ``max_memory_allocated`` rise; the step's median
+    time against the dry run's ``bound_s``. Returns the launches."""
+    run, args = dryrun.make_step(cfg, shape, tcfg, params=params,
+                                 batch=batch, device="cuda")
+    run(*args)                                          # warm
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(P15_TIMED[shape.kind]):
+        t0 = time.perf_counter()
+        run(*args)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    step_s = statistics.median(times)
+
+    for fn in WRAPPERS.values():
+        fn.launches = 0
+    card = Census(device="cuda")
+    card.track(args)
+    gc.collect()             # garbage of earlier steps would be freed inside
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    with card:
+        run(*args)
+    torch.cuda.synchronize()
+    rise = torch.cuda.max_memory_allocated() - before
+    card = card.result()
+    wrapped = {n: fn.launches for n, fn in WRAPPERS.items()}
+    t0 = time.perf_counter()
+    meta = dryrun.count_step(cfg, shape, tcfg).result()
+    meta_s = time.perf_counter() - t0
+
+    what = f"{label} {cfg.name} {shape.kind} B={shape.global_batch} " \
+           f"S={shape.seq_len}"
+    ops_diff = {k: (card["ops"].get(k, 0), meta["ops"].get(k, 0))
+                for k in set(card["ops"]) | set(meta["ops"])
+                if card["ops"].get(k, 0) != meta["ops"].get(k, 0)}
+    check(not ops_diff, f"{what}: op counts differ (card, meta): {ops_diff}")
+    check(card["flops"] == meta["flops"] and card["bytes"] == meta["bytes"],
+          f"{what}: card {card['flops']} FLOPs {card['bytes']} B, meta "
+          f"{meta['flops']} FLOPs {meta['bytes']} B")
+    launches = {n: k["launches"] for n, k in card["kernels"].items()}
+    check(launches == {n: k["launches"] for n, k in meta["kernels"].items()}
+          and launches == wrapped,
+          f"{what}: launches card {launches}, meta {meta['kernels']}, "
+          f"wrappers {wrapped}")
+    new = card["peak_bytes"] - card["base_bytes"]
+    check(abs(new - rise) <= P15_PEAK_TOL * rise,
+          f"{what}: census peak {new} B vs max_memory_allocated rise {rise}")
+    rf = dryrun.roofline(meta["flops"], meta["bytes"],
+                         dryrun.model_flops(cfg, shape)["model_flops_6nd"],
+                         tcfg.act_dtype)
+    print(f"  {what}: card census == meta dry run ({meta_s:.1f} s): "
+          f"{meta['flops']:.6e} FLOPs, {meta['bytes']:.6e} B, "
+          f"{meta['n_ops']} ops, launches "
+          f"{ {n: c for n, c in launches.items() if c} }; peak beyond "
+          f"the step's inputs {new / 1e9:.4f} GB (census, meta "
+          f"{(meta['peak_bytes'] - meta['base_bytes']) / 1e9:.4f}) vs "
+          f"max_memory_allocated rise {rise / 1e9:.4f} GB "
+          f"({new / rise - 1:+.2%}); step {step_s * 1e3:.3f} ms (median "
+          f"of {len(times)}) vs bound_s {rf['bound_s'] * 1e3:.4f} ms "
+          f"({rf['dominant']}; compute {rf['compute_s'] * 1e3:.4f}, memory "
+          f"{rf['memory_s'] * 1e3:.4f}): roofline fraction bound/step "
+          f"{rf['bound_s'] / step_s:.4f}, 6ND useful/step "
+          f"{rf['useful_s'] / step_s:.4f}")
+    return launches
+
+
+def dry_run_phase_15(label):
+    """Phase 15: (a) SmolLM-360M's train step, prefill and decode step,
+    (b) Zamba2-1.2B's prefill and decode step, (c) xLSTM-1.3B's prefill,
+    each counted on the card and on meta (census_vs_dry_run); (d) the dry
+    run's SmolLM sweep and its roofline table."""
+    print(f"phase 15 on {label} (times are this card's; bound_s from the "
+          f"H100 constants of repro_torch.launch.mesh)")
+    total = {n: 0 for n in WRAPPERS}
+    dev = "cuda"
+    bf16 = TrainConfig()
+    rng = np.random.default_rng(0)
+    tokens = lambda cfg, B, S: torch.as_tensor(
+        rng.integers(0, cfg.vocab, (B, S)), dtype=torch.int32, device=dev)
+
+    def full_decode(cfg, params, B=SERVE_KW["n_slots"],
+                    S=SERVE_KW["s_max"]):
+        batch = {"tokens": tokens(cfg, B, 1),
+                 "positions": torch.full((B,), S - 1, dtype=torch.int32,
+                                         device=dev)}
+        return census_vs_dry_run(cfg, ShapeSpec("decode", S, B, "decode"),
+                                 bf16, params, batch, "15a/b")
+
+    def add(launches):
+        for n, c in launches.items():
+            total[n] += c
+
+    for arch in ("smollm_360m", "zamba2_1_2b", "xlstm_1_3b"):
+        cfg = configs.get(arch)
+        params = lm.init(cfg, torch.Generator(device=dev).manual_seed(15))
+        if arch == "smollm_360m":
+            train = ShapeSpec("train", TRAIN_S, TRAIN_B, "train")
+            batch = {"tokens": tokens(cfg, TRAIN_B, TRAIN_S),
+                     "labels": tokens(cfg, TRAIN_B, TRAIN_S)}
+            add(census_vs_dry_run(cfg, train, bf16, params, batch, "15a"))
+        S = P15_XLSTM_S if arch == "xlstm_1_3b" else P15_PREFILL_S
+        part = {"smollm_360m": "15a", "zamba2_1_2b": "15b"}.get(arch, "15c")
+        add(census_vs_dry_run(cfg, ShapeSpec("prefill", S, 1, "prefill"),
+                              bf16, params, {"tokens": tokens(cfg, 1, S)},
+                              part))
+        if arch != "xlstm_1_3b":
+            add(full_decode(cfg, params))
+        del params
+        torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        out = str(Path(tmp) / "dryrun.json")
+        t0 = time.perf_counter()
+        check(dryrun.main(["--arch", "smollm_360m", "--out", out]) == 0,
+              "15d: the dry run's SmolLM sweep failed")
+        print(f"  15d: python -m repro_torch.launch.dryrun --arch "
+              f"smollm_360m in {time.perf_counter() - t0:.1f} s (meta, on "
+              f"the host; computed on H100 constants, not measured):")
+        print(roofline_report.table(roofline_report.load(out), md=True))
+    return total
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3229,6 +3346,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_done(f"phase 14c (the four examples); phase 14 took "
                f"{time.perf_counter() - t14:.1f} s")
+    t15 = time.perf_counter()
+    paths["dry_run_vs_card"] = dry_run_phase_15(smi)
+    torch.cuda.empty_cache()
+    phase_done(f"phase 15 (the dry run against the card) took "
+               f"{time.perf_counter() - t15:.1f} s")
     print(f"launches on the main paths (B1: counted by its wrapper at each "
           f"launch; the device loop is eager, no graph): {paths}")
     launches = {n: sum(p.get(n, 0) for p in paths.values()) for n in WRAPPERS}

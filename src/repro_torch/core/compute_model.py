@@ -76,3 +76,15 @@ class DeviceComputeSpec:
 
 # Table I device (used for both GS and LEO in the paper's evaluation).
 PAPER_DEVICE = DeviceComputeSpec()
+
+# The card the port runs on, in the model's terms: an H100 SXM at its
+# 700 W limit and 1.98 GHz boost clock, its dense bf16 tensor-core peak
+# (989 TFLOP/s, NVIDIA's data sheet) as one core's work per cycle. The
+# counterpart of the reference's TPU_V5E_SPEC.
+H100_SPEC = DeviceComputeSpec(
+    name="h100-sxm",
+    power_max_w=700.0,
+    f_max_hz=1.98e9,
+    n_cores=1,
+    flops_per_cycle=989e12 / 1.98e9,
+)

@@ -72,16 +72,29 @@ def decode_attention(q, k, v, lengths):
     Decode is never differentiated (nor in the reference): under grad mode
     an input that requires grad raises, rather than an output without a
     graph."""
+    dev = q.device
+    if not (q.is_cuda and k.device == dev and v.device == dev
+            and lengths.device == dev):
+        raise ValueError("decode_attention needs q, k, v, lengths on one "
+                         "CUDA device")
+    return _call(q, k, v, lengths, launch=True)
+
+
+def decode_attention_meta(q, k, v, lengths):
+    """:func:`decode_attention` on meta tensors: its checks and its
+    allocations, without the launch (the census's dry run)."""
+    if not all(t.is_meta for t in (q, k, v, lengths)):
+        raise ValueError("decode_attention_meta needs meta tensors")
+    return _call(q, k, v, lengths, launch=False)
+
+
+def _call(q, k, v, lengths, *, launch):
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         raise RuntimeError("decode_attention has no gradient: call it under "
                            "torch.no_grad() or on inputs without grad")
     B, H, _, D = q.shape
     KV, S = k.shape[1], k.shape[2]
     dev = q.device
-    if not (q.is_cuda and k.device == dev and v.device == dev
-            and lengths.device == dev):
-        raise ValueError("decode_attention needs q, k, v, lengths on one "
-                         "CUDA device")
     if q.dtype not in DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"unsupported dtypes {q.dtype}, {k.dtype}, {v.dtype}")
     if (q.shape != (B, H, 1, D) or D not in HEAD_DIMS
@@ -103,16 +116,29 @@ def decode_attention(q, k, v, lengths):
         return o.zero_()
     scratch = torch.empty(scratch_words(B, H, KV, S, D, q.dtype),
                           dtype=torch.float32, device=dev)
-    fn = _build.load("decode_attn").decode_attn
-    with torch.cuda.device(dev):
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
-                 o.data_ptr(), scratch.data_ptr(), B, H, KV, S, D,
-                 split_rows(D, q.dtype), 1.0 / math.sqrt(D),
-                 DTYPES[q.dtype], torch.cuda.current_stream().cuda_stream)
-    if err:
-        raise RuntimeError(f"decode_attn launch failed: CUDA error {err}")
-    decode_attention.launches += 1
+    if launch:
+        fn = _build.load("decode_attn").decode_attn
+        with torch.cuda.device(dev):
+            err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                     lengths.data_ptr(), o.data_ptr(), scratch.data_ptr(), B,
+                     H, KV, S, D, split_rows(D, q.dtype), 1.0 / math.sqrt(D),
+                     DTYPES[q.dtype], torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"decode_attn launch failed: CUDA error {err}")
+        decode_attention.launches += 1
     return o
+
+
+def work(q, k, rows):
+    """(bytes, operations) of one launch on q (B, H, 1, D) and k, v (B,
+    KV, S, D) holding ``rows`` valid cache rows in all (the sum of
+    ``lengths``): q read and o written once, the int32 lengths, and the
+    valid K and V rows read once per KV head; q.k^T and p.v over the
+    valid rows, 4 D operations a row and query head."""
+    B, H, _, D = q.shape
+    KV, elt = k.shape[1], k.element_size()
+    return (2 * q.numel() * elt + 4 * B + 2 * rows * KV * D * elt,
+            4 * D * H * rows)
 
 
 decode_attention.launches = 0

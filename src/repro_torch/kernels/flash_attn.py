@@ -110,10 +110,23 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True,
     f32, D in HEAD_DIMS. Returns (B, H, Sq, D) in q's dtype, and with
     ``lse`` also each row's log-sum-exp, f32 (B, H, Sq), from the same
     launch."""
-    B, H, Sq, D = q.shape
-    KV, Skv = k.shape[1], k.shape[2]
     if not (q.is_cuda and k.device == q.device and v.device == q.device):
         raise ValueError("flash_attention_fwd needs q, k, v on one CUDA device")
+    return _call(q, k, v, causal=causal, window=window, lse=lse, launch=True)
+
+
+def flash_attention_fwd_meta(q, k, v, *, causal: bool = True,
+                             window: Optional[int] = None, lse: bool = False):
+    """:func:`flash_attention_fwd` on meta tensors: its checks and its
+    allocations, without the launch (the census's dry run)."""
+    if not all(t.is_meta for t in (q, k, v)):
+        raise ValueError("flash_attention_fwd_meta needs meta tensors")
+    return _call(q, k, v, causal=causal, window=window, lse=lse, launch=False)
+
+
+def _call(q, k, v, *, causal, window, lse, launch):
+    B, H, Sq, D = q.shape
+    KV, Skv = k.shape[1], k.shape[2]
     if q.dtype not in DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"unsupported dtypes {q.dtype}, {k.dtype}, {v.dtype}")
     if D not in HEAD_DIMS or k.shape != (B, KV, Skv, D) or v.shape != k.shape:
@@ -132,19 +145,50 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True,
     if o.numel() == 0 or Skv == 0:
         o.zero_()
         return (o, m.fill_(NEG_INF)) if lse else o
-    fn = _build.load("flash_attn_fwd").flash_attn_fwd
-    with torch.cuda.device(q.device):
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                 m.data_ptr() if lse else None, B, H, KV, Sq, Skv, D,
-                 int(causal), window or 0, 1.0 / math.sqrt(D),
-                 DTYPES[q.dtype], torch.cuda.current_stream().cuda_stream)
-    if err:
-        raise RuntimeError(f"flash_attn_fwd launch failed: CUDA error {err}")
-    flash_attention_fwd.launches += 1
+    if launch:
+        fn = _build.load("flash_attn_fwd").flash_attn_fwd
+        with torch.cuda.device(q.device):
+            err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                     m.data_ptr() if lse else None, B, H, KV, Sq, Skv, D,
+                     int(causal), window or 0, 1.0 / math.sqrt(D),
+                     DTYPES[q.dtype], torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"flash_attn_fwd launch failed: CUDA error {err}")
+        flash_attention_fwd.launches += 1
     return (o, m) if lse else o
 
 
 flash_attention_fwd.launches = 0
+
+
+def _pairs(Sq, Skv, causal, window):
+    """The (q, k) pairs one head attends: the causal band of Sq rows
+    (within the window if any), or all Sq x Skv pairs without the band."""
+    if not causal:
+        return Sq * Skv
+    w = Sq if window is None else min(window, Sq)
+    return w * (w + 1) // 2 + (Sq - w) * w
+
+
+def work(q, k, *, causal: bool = True, window: Optional[int] = None,
+         lse: bool = False):
+    """(bytes, operations) of one launch on q (B, H, Sq, D) and k, v (B,
+    KV, Skv, D): q, k and v read once, o (and with ``lse`` the f32 lse)
+    written once; q.k^T and p.v over the band's pairs, 4 D operations a
+    pair and head."""
+    B, H, Sq, D = q.shape
+    nbytes = ((2 * q.numel() + 2 * k.numel()) * q.element_size()
+              + (4 * B * H * Sq if lse else 0))
+    return nbytes, 4 * D * H * B * _pairs(Sq, k.shape[2], causal, window)
+
+
+def bwd_work(q, k, *, causal: bool = True, window: Optional[int] = None):
+    """(bytes, operations) of :func:`flash_attention_bwd_plain`: it reads
+    q, k, v, o, dO and lse and writes dq, dk, dv once; it recomputes the
+    scores and takes dP, dV, dQ and dK, 10 D operations a pair and head."""
+    B, H, Sq, D = q.shape
+    nbytes = (4 * q.numel() + 4 * k.numel()) * q.element_size() + 4 * B * H * Sq
+    return nbytes, 10 * D * H * B * _pairs(Sq, k.shape[2], causal, window)
 
 
 def _kernel_with_lse(q, k, v, *, causal, window):

@@ -22,6 +22,8 @@ three stages count as one); the dispatch by device is in
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 import torch.nn.functional as F
 
@@ -42,12 +44,15 @@ def scratch_words(B, S, H, P, N, L):
     return B * nc * (lp * lp + H * P * N + H)
 
 
-def mamba_chunk_scan_plain(x, dt, a_log, b, c, *, chunk: int = 128):
+def mamba_chunk_scan_plain(x, dt, a_log, b, c, *, chunk: int = 128,
+                           steps: Optional[int] = None):
     """The plain version, chunk by chunk in f32: the reference's jnp path
     (``repro/kernels/ops.py::_mamba_chunked_jnp``), with the same values;
     its gradient is finite where the reference's is NaN (the decay's
     exponent is masked above the diagonal). Returns (y in x's dtype (B,
-    S, H, P), h_final f32 (B, H, P, N))."""
+    S, H, P), h_final f32 (B, H, P, N)). ``steps`` runs only the first
+    chunks (the census counts a few to extrapolate; y then holds
+    theirs)."""
     B, S, H, P = x.shape
     N = b.shape[-1]
     h = torch.zeros((B, H, P, N), dtype=torch.float32, device=x.device)
@@ -63,7 +68,7 @@ def mamba_chunk_scan_plain(x, dt, a_log, b, c, *, chunk: int = 128):
     a = -torch.exp(a_log.float())                                   # (H,)
     tri = torch.ones((L, L), dtype=torch.bool, device=x.device).tril()
     ys = []
-    for i in range(n):
+    for i in range(n if steps is None else steps):
         xc, dtc, bc, cc = xf[:, i], dtf[:, i], bf[:, i], cf[:, i]
         cum = torch.cumsum(dtc * a, dim=1)                          # (B,L,H)
         # the exponent is masked too, not only the product: above the
@@ -94,12 +99,25 @@ def mamba_chunk_scan(x, dt, a_log, b, c, *, chunk: int = 128):
     N too large for the chunk's tiles in shared memory (above 64 at
     chunk 128) fails at launch and raises. Returns (y (B, S, H, P) in
     x's dtype, h_final (B, H, P, N) f32)."""
-    B, S, H, P = x.shape
-    N = b.shape[-1]
     dev = x.device
     if not (x.is_cuda and all(t.device == dev for t in (dt, a_log, b, c))):
         raise ValueError("mamba_chunk_scan needs x, dt, a_log, b, c on one "
                          "CUDA device")
+    return _call(x, dt, a_log, b, c, chunk=chunk, launch=True)
+
+
+def mamba_chunk_scan_meta(x, dt, a_log, b, c, *, chunk: int = 128):
+    """:func:`mamba_chunk_scan` on meta tensors: its checks and its
+    allocations, without the launch (the census's dry run)."""
+    if not all(t.is_meta for t in (x, dt, a_log, b, c)):
+        raise ValueError("mamba_chunk_scan_meta needs meta tensors")
+    return _call(x, dt, a_log, b, c, chunk=chunk, launch=False)
+
+
+def _call(x, dt, a_log, b, c, *, chunk, launch):
+    B, S, H, P = x.shape
+    N = b.shape[-1]
+    dev = x.device
     if (x.dtype not in DTYPES or b.dtype != x.dtype or c.dtype != x.dtype
             or dt.dtype != torch.float32 or a_log.dtype != torch.float32):
         raise ValueError(f"unsupported dtypes x {x.dtype}, b {b.dtype}, "
@@ -123,16 +141,30 @@ def mamba_chunk_scan(x, dt, a_log, b, c, *, chunk: int = 128):
     scratch = torch.empty(scratch_words(B, S, H, P, N, L)
                           if x.dtype == torch.bfloat16 else 0,
                           dtype=torch.float32, device=dev)
-    fn = _build.load("mamba_scan").mamba_scan
-    with torch.cuda.device(dev):
-        err = fn(x.data_ptr(), dt.data_ptr(), a_log.data_ptr(), b.data_ptr(),
-                 c.data_ptr(), y.data_ptr(), h.data_ptr(), scratch.data_ptr(),
-                 B, S, H, P, N, L, DTYPES[x.dtype],
-                 torch.cuda.current_stream().cuda_stream)
-    if err:
-        raise RuntimeError(f"mamba_scan launch failed: CUDA error {err}")
-    mamba_chunk_scan.launches += 1
+    if launch:
+        fn = _build.load("mamba_scan").mamba_scan
+        with torch.cuda.device(dev):
+            err = fn(x.data_ptr(), dt.data_ptr(), a_log.data_ptr(),
+                     b.data_ptr(), c.data_ptr(), y.data_ptr(), h.data_ptr(),
+                     scratch.data_ptr(), B, S, H, P, N, L, DTYPES[x.dtype],
+                     torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"mamba_scan launch failed: CUDA error {err}")
+        mamba_chunk_scan.launches += 1
     return y, h
+
+
+def work(x, dt, a_log, b, c, *, chunk: int = 128):
+    """(bytes, operations) of one launch: x, b, c, dt and a_log read once,
+    y and the f32 final state written once; per head, the L x L products
+    c.b^T and M x (2 S L (N + P)) and the inter-chunk and state-update
+    contractions (4 S P N), without causal skipping."""
+    B, S, H, P = x.shape
+    N, elt = b.shape[-1], x.element_size()
+    L = min(chunk, S)
+    nbytes = (2 * B * S * H * P * elt + 2 * B * S * N * elt + 4 * B * S * H
+              + 4 * H + 4 * B * H * P * N)
+    return nbytes, B * H * (2 * S * L * (N + P) + 4 * S * P * N)
 
 
 mamba_chunk_scan.launches = 0

@@ -22,6 +22,7 @@ device is in :mod:`repro_torch.kernels.ops`.
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -38,12 +39,14 @@ L_MAX = 64                # the kernel's longest chunk (L_MAX in the source)
 SCRATCH_WORDS = 5440
 
 
-def mlstm_chunk_scan_plain(q, k, v, i_pre, f_pre, *, chunk: int = 256):
+def mlstm_chunk_scan_plain(q, k, v, i_pre, f_pre, *, chunk: int = 256,
+                           steps: Optional[int] = None):
     """The plain version, chunk by chunk in f32: the reference's jnp path
     (``repro/kernels/ops.py::_mlstm_chunked_jnp``). The padded tail of
     the last chunk has f = 1 and i = -1e30 (no update) and zero data.
     Returns (h in q's dtype (B, S, H, P), (C (B, H, P, P), n (B, H, P),
-    m (B, H)) f32)."""
+    m (B, H)) f32). ``steps`` runs only the first chunks (the census
+    counts a few to extrapolate; h then holds theirs)."""
     B, S, H, P = q.shape
     dev = q.device
     C = torch.zeros((B, H, P, P), dtype=torch.float32, device=dev)
@@ -66,7 +69,7 @@ def mlstm_chunk_scan_plain(q, k, v, i_pre, f_pre, *, chunk: int = 256):
         lf = torch.where(valid, lf, 0.0)
     tri = torch.ones((L, L), dtype=torch.bool, device=dev).tril()
     hs = []
-    for c in range(nc):
+    for c in range(nc if steps is None else steps):
         qc, kc, vc, lic, lfc = qf[:, c], kf[:, c], vf[:, c], li[:, c], lf[:, c]
         bcum = torch.cumsum(lfc, dim=1)                           # (B,L,H)
         # select, not mask by product: D is only defined for s <= t
@@ -107,11 +110,24 @@ def mlstm_chunk_scan(q, k, v, i_pre, f_pre, *, chunk: int = 256):
     so) fails at launch and raises.
     Returns (h (B, S, H, P) in q's dtype, (C (B, H, P, P), n (B, H, P, 1),
     m (B, H)) f32), the Pallas kernel's layout."""
-    B, S, H, P = q.shape
     dev = q.device
     if not (q.is_cuda and all(t.device == dev for t in (k, v, i_pre, f_pre))):
         raise ValueError("mlstm_chunk_scan needs q, k, v, i_pre, f_pre on "
                          "one CUDA device")
+    return _call(q, k, v, i_pre, f_pre, chunk=chunk, launch=True)
+
+
+def mlstm_chunk_scan_meta(q, k, v, i_pre, f_pre, *, chunk: int = 256):
+    """:func:`mlstm_chunk_scan` on meta tensors: its checks and its
+    allocations, without the launch (the census's dry run)."""
+    if not all(t.is_meta for t in (q, k, v, i_pre, f_pre)):
+        raise ValueError("mlstm_chunk_scan_meta needs meta tensors")
+    return _call(q, k, v, i_pre, f_pre, chunk=chunk, launch=False)
+
+
+def _call(q, k, v, i_pre, f_pre, *, chunk, launch):
+    B, S, H, P = q.shape
+    dev = q.device
     if (q.dtype not in DTYPES or k.dtype != q.dtype or v.dtype != q.dtype
             or i_pre.dtype != torch.float32 or f_pre.dtype != torch.float32):
         raise ValueError(f"unsupported dtypes q {q.dtype}, k {k.dtype}, "
@@ -144,17 +160,31 @@ def mlstm_chunk_scan(q, k, v, i_pre, f_pre, *, chunk: int = 256):
     scratch = torch.empty(B * H * -(-S // L) * SCRATCH_WORDS
                           if q.dtype == torch.bfloat16 else 0,
                           dtype=torch.float32, device=dev)
-    fn = _build.load("mlstm_scan").mlstm_scan
-    with torch.cuda.device(dev):
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), i_pre.data_ptr(),
-                 f_pre.data_ptr(), h.data_ptr(), C.data_ptr(), n.data_ptr(),
-                 m.data_ptr(), scratch.data_ptr(), B, S, H, P, L,
-                 1.0 / math.sqrt(P), DTYPES[q.dtype],
-                 torch.cuda.current_stream().cuda_stream)
-    if err:
-        raise RuntimeError(f"mlstm_scan launch failed: CUDA error {err}")
-    mlstm_chunk_scan.launches += 1
+    if launch:
+        fn = _build.load("mlstm_scan").mlstm_scan
+        with torch.cuda.device(dev):
+            err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                     i_pre.data_ptr(), f_pre.data_ptr(), h.data_ptr(),
+                     C.data_ptr(), n.data_ptr(), m.data_ptr(),
+                     scratch.data_ptr(), B, S, H, P, L, 1.0 / math.sqrt(P),
+                     DTYPES[q.dtype], torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"mlstm_scan launch failed: CUDA error {err}")
+        mlstm_chunk_scan.launches += 1
     return h, (C, n, m)
+
+
+def work(q, k, v, i_pre, f_pre, *, chunk: int = 256):
+    """(bytes, operations) of one launch at the kernel's chunk L = min(64,
+    chunk, S): q, k, v, i_pre, f_pre read once, h and the f32 final state
+    (C, n, m) written once; per head and position, q.k^T and W v over the
+    chunk (4 L P, the full L x L block, no causal skipping), q C_prev and
+    the C update (4 P^2), q.n and the n update (4 P)."""
+    B, S, H, P = q.shape
+    L = min(L_MAX, chunk, S)
+    nbytes = (4 * B * S * H * P * q.element_size() + 2 * 4 * B * S * H
+              + 4 * B * H * (P * P + P + 1))
+    return nbytes, B * H * S * (4 * L * P + 4 * P * P + 4 * P)
 
 
 mlstm_chunk_scan.launches = 0

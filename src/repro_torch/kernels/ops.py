@@ -12,9 +12,14 @@ the lse write costs time; otherwise the kernel runs without lse. Decode
 attention (B3) raises under grad. The plain CPU versions are differentiable as
 they are. A meta tensor (shape-only metering, ``sl_step.boundary_bits``)
 takes the plain version too: nothing is computed.
+
+While a :class:`repro_torch.utils.census.Census` counts, it is
+``census`` here, and each kernel op (and the sLSTM recurrence) hands its
+call to it; otherwise that is one check of a module global a call.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional
 
@@ -29,6 +34,9 @@ from repro_torch.kernels import ref
 from repro_torch.kernels import split_quant as _quant
 
 
+census = None       # the counting Census, set while one is entered
+
+
 def _plain(t) -> bool:
     return t.device.type in ("cpu", "meta")
 
@@ -40,18 +48,32 @@ def _needs_grad(*ts) -> bool:
 def flash_attention(q, k, v, *, causal: bool = True,
                     window: Optional[int] = None):
     """q: (B,H,Sq,D); k,v: (B,KV,Skv,D) -> (B,H,Sq,D)."""
+    if census is not None:
+        return census.flash_attention(q, k, v, causal=causal, window=window)
     if _plain(q):
         return _flash.flash_attention_plain(q, k, v, causal=causal,
                                             window=window)
+    return flash_card(q, k, v, causal=causal, window=window)
+
+
+def flash_card(q, k, v, *, causal: bool = True,
+               window: Optional[int] = None,
+               kernel=_flash.flash_attention_fwd):
+    """The card's attention over ``kernel`` (B2's wrapper, or a census's
+    span of it): its autograd Function with lse when an input requires
+    grad under grad mode, else the kernel alone."""
     if _needs_grad(q, k, v):
-        return _flash.flash_attention_grad(q, k, v, causal=causal,
-                                           window=window)
-    return _flash.flash_attention_fwd(q, k, v, causal=causal, window=window)
+        return _flash.flash_attention_grad(
+            q, k, v, causal=causal, window=window,
+            forward_fn=functools.partial(kernel, lse=True))
+    return kernel(q, k, v, causal=causal, window=window)
 
 
 def decode_attention(q, k, v, lengths):
     """q: (B,H,1,D); k,v: (B,KV,S,D); lengths: (B,) -> (B,H,1,D)."""
-    if q.device.type == "cpu":
+    if census is not None:
+        return census.decode_attention(q, k, v, lengths)
+    if _plain(q):
         return _decode.decode_attention_plain(q, k, v, lengths)
     return _decode.decode_attention(q, k, v, lengths)
 
@@ -59,6 +81,8 @@ def decode_attention(q, k, v, lengths):
 def mamba_scan(x, dt, a_log, b, c, *, chunk: int = 128):
     """Mamba-2 SSD chunked scan. x: (B,S,H,P); dt: (B,S,H); a_log: (H,);
     b, c: (B,S,N) -> (y (B,S,H,P), h_final (B,H,P,N) f32)."""
+    if census is not None:
+        return census.mamba_scan(x, dt, a_log, b, c, chunk=chunk)
     if _plain(x):
         return _mamba.mamba_chunk_scan_plain(x, dt, a_log, b, c, chunk=chunk)
     return _mamba.mamba_scan_grad(x, dt, a_log, b, c, chunk=chunk)
@@ -80,6 +104,8 @@ def mamba_decode_step(h, x_t, dt_t, a_log, b_t, c_t):
 def mlstm_scan(q, k, v, i_pre, f_pre, *, chunk: int = 256):
     """xLSTM mLSTM chunkwise scan. q, k, v: (B,S,H,P); i_pre, f_pre:
     (B,S,H) f32 -> (h (B,S,H,P), (C (B,H,P,P), n (B,H,P), m (B,H)) f32)."""
+    if census is not None:
+        return census.mlstm_scan(q, k, v, i_pre, f_pre, chunk=chunk)
     if _plain(q):
         return _mlstm.mlstm_chunk_scan_plain(q, k, v, i_pre, f_pre,
                                              chunk=chunk)
@@ -113,9 +139,17 @@ def slstm_scan(xproj, wh, c0, n0, h0, m0):
     recurrence; the reference has no kernel for it either). xproj:
     (B,S,4d) input projections plus bias; wh: (d,4d); c0, n0, h0, m0:
     (B,d), all f32. Returns (h (B,S,d), (c, n, h, m))."""
+    if census is not None:
+        return census.slstm_scan(xproj, wh, c0, n0, h0, m0)
+    return slstm_loop(xproj, wh, c0, n0, h0, m0)
+
+
+def slstm_loop(xproj, wh, c0, n0, h0, m0, steps: Optional[int] = None):
+    """:func:`slstm_scan`'s token loop; ``steps`` runs only the first
+    tokens (the census counts a few to extrapolate)."""
     c, n, h, m = c0, n0, h0, m0
     hs = []
-    for t in range(xproj.shape[1]):
+    for t in range(xproj.shape[1] if steps is None else steps):
         zt, it, ft, ot = (xproj[:, t] + h @ wh).chunk(4, dim=-1)
         lf = -F.softplus(-ft)
         m_new = torch.maximum(lf + m, it)
@@ -134,7 +168,9 @@ def quantize_boundary(x):
     returns q int8 of ``x.shape`` and scale f32 of ``x.shape[:-1] + (1,)``.
     An NHWC boundary gives one row per pixel, as in the reference; on the
     card the kernel reads a strided boundary as it lies (no copy)."""
-    if x.device.type == "cpu":
+    if census is not None:
+        q, s = census.quantize_rows(x)
+    elif _plain(x):
         q, s = _quant.quantize_rows_plain(x)
     else:
         q, s = _quant.quantize_rows(x)
@@ -151,7 +187,9 @@ class _STEQuantize(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x):
-        if x.device.type == "cpu":
+        if census is not None:
+            return census.quantize_dequantize(x)
+        if _plain(x):
             return _quant.quantize_dequantize_plain(x)
         return _quant.quantize_dequantize(x)
 

@@ -16,13 +16,14 @@ def flat(out):
 
 def recompute_grads(plain, inputs, needs, grads_out, **kw):
     """The gradients of ``plain(*inputs, **kw)``'s outputs (flattened,
-    in order) against ``grads_out``, for the inputs flagged in ``needs``
-    (None for the others): the plain version re-run on detached copies of
-    the inputs under grad mode."""
+    in order) against ``grads_out`` (None: no gradient), for the inputs
+    flagged in ``needs`` (None for the others): the plain version re-run
+    on detached copies of the inputs under grad mode."""
     leaves = [t.detach().requires_grad_(n) for t, n in zip(inputs, needs)]
     with torch.enable_grad():
         out = plain(*leaves, **kw)
-    pairs = [(o, g) for o, g in zip(flat(out), grads_out) if o.requires_grad]
+    pairs = [(o, g) for o, g in zip(flat(out), grads_out)
+             if o.requires_grad and g is not None]
     want = [t for t, n in zip(leaves, needs) if n]
     got = iter(torch.autograd.grad([o for o, _ in pairs],
                                    want, [g for _, g in pairs],

@@ -110,12 +110,15 @@ def _like(x):
     return torch.empty(x.shape, dtype=x.dtype, device=x.device)
 
 
-def _launch(x, entry, fused: bool):
+def _launch(x, entry, fused: bool, launch: bool = True):
     """One launch on x (..., C), counted in ``entry.launches``: fused ->
-    xhat in x's strides; else -> (q int8 (rows, C), scale f32 (rows, 1))."""
+    xhat in x's strides; else -> (q int8 (rows, C), scale f32 (rows, 1)).
+    Without ``launch`` (a meta x, the census's dry run): the same checks
+    and allocations, no launch."""
     global copies
-    if not x.is_cuda:
-        raise ValueError("split_quant needs a CUDA tensor")
+    if not (x.is_cuda if launch else x.is_meta):
+        raise ValueError("split_quant needs a CUDA tensor" if launch
+                         else "split_quant's dry run needs a meta tensor")
     if x.dtype not in DTYPES:
         raise ValueError(f"unsupported dtype {x.dtype}")
     if x.dim() == 0 or x.shape[-1] == 0 or x.numel() >= 2 ** 31:
@@ -137,7 +140,7 @@ def _launch(x, entry, fused: bool):
         q = torch.empty((rows, C), dtype=torch.int8, device=dev)
         scale = torch.empty((rows, 1), dtype=torch.float32, device=dev)
     out = xhat if fused else (q, scale)
-    if rows == 0:
+    if rows == 0 or not launch:
         return out
     per_vec = 16 // x.element_size()          # elements in one 16-byte load
     vec = int(lay.cs == 1 and C % per_vec == 0 and lay.ns % per_vec == 0
@@ -170,6 +173,11 @@ def quantize_rows(x):
 quantize_rows.launches = 0
 
 
+def quantize_rows_meta(x):
+    """:func:`quantize_rows` on a meta tensor, without the launch."""
+    return _launch(x, quantize_rows, fused=False, launch=False)
+
+
 def quantize_dequantize_plain(x):
     """x (..., d) -> dequantize(quantize(rows of x)) with x's shape, dtype
     and (where they hold each element once) strides."""
@@ -185,3 +193,18 @@ def quantize_dequantize(x):
 
 
 quantize_dequantize.launches = 0
+
+
+def quantize_dequantize_meta(x):
+    """:func:`quantize_dequantize` on a meta tensor, without the launch."""
+    return _launch(x, quantize_dequantize, fused=True, launch=False)
+
+
+def work(x, fused: bool):
+    """(bytes, operations) of one launch on x (..., C): x read once; xhat
+    in x's dtype (``fused``), or the int8 codes and the f32 scales,
+    written once; about six f32 operations per element (abs, max, divide,
+    round, 2 clips)."""
+    n, rows = x.numel(), x.numel() // x.shape[-1]
+    out_bytes = n * x.element_size() if fused else n + 4 * rows
+    return n * x.element_size() + out_bytes, 6 * n

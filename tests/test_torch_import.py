@@ -56,7 +56,11 @@ def test_modules_and_chip_smoke_import_without_jax():
             "repro_torch.configs.qwen2_vl_7b",
             "repro_torch.configs.whisper_small",
             "repro_torch.train.step", "repro_torch.launch.train",
-            "repro_torch.launch.lm_split_train"} <= set(mods)
+            "repro_torch.launch.lm_split_train",
+            "repro_torch.launch.dryrun", "repro_torch.launch.roofline",
+            "repro_torch.launch.fused_accounting",
+            "repro_torch.launch.mesh", "repro_torch.configs.shapes",
+            "repro_torch.utils.census"} <= set(mods)
     code = ("import sys\n"
             "sys.modules['jax'] = None\n"
             "sys.modules['repro'] = None\n"
