@@ -134,7 +134,18 @@ Phases, each fatal on failure:
      census's peak within 10% of the step's max_memory_allocated rise,
      the step's time against the dry run's bound (the roofline fraction
      on this card); (d) the dry run's SmolLM sweep and its roofline
-     table.
+     table;
+ 16. the train step on a (data, model) mesh (repro_torch.models.parallel,
+     launch.mesh): min(cards, 4) ranks, one card each, over NCCL, run
+     full-width SmolLM-360M at phase 12a's shape (8 x 512, bf16, remat
+     full, AdamW) for 3 steps on make_host_mesh(1), exactly 64 B2
+     launches a step on every rank; on one card the (1, 1) mesh equals
+     the one-process step bit for bit in loss, grad norm and every
+     parameter after each step (on more, the (n, 1) mesh within bf16's
+     rounding, and one f32 step on make_host_mesh(2), and one of
+     Llama-3-8B cut to 2 layers with every card on the model axis, each
+     within 1e-5 in loss and 5e-4 in parameters); the mesh, collective
+     calls, ms and peak memory a step.
 Phase 3 also holds B2's lse and its autograd Function at SmolLM's
 training shape (the plain backward timed beside SDPA's forward +
 backward), and the scans' Functions at full-width heads (gradients bit
@@ -363,6 +374,14 @@ DECODE_PARITY_TOL = 2e-3
 P15_PREFILL_S, P15_XLSTM_S = 498, 64
 P15_PEAK_TOL = 0.10
 P15_TIMED = {"train": 3, "prefill": 5, "decode": 10}
+# Phase 16: ranks of the sharded train step (one card each, at most 4),
+# each a process of this script (``--mesh-rank``), at phase 12a's shape.
+P16_STEPS, P16_TIMEOUT_S = 3, 600
+P16_BF16_LOSS_RTOL = 2.0 ** -9     # a data axis sums bf16 partial grads
+P16_F32 = dict(loss_rtol=1e-5, atol=5e-4, rtol=5e-4)
+# With 2+ cards: Llama-3-8B at published widths, reduced: n_layers 32 -> 2,
+# batch 2 x 512, f32, one step with every card on the model axis
+P16_LLAMA_LAYERS, P16_LLAMA_B = 2, 2
 
 
 def check(ok, what):
@@ -745,7 +764,8 @@ def init_bf16_at_rest(cfg, gen):
     params = cast(init_params({k: v for k, v in tree.items()
                                if k != "units"}, gen))
     unit_spec = map_tree(lambda sp: dataclasses.replace(
-        sp, shape=sp.shape[1:]), tree["units"])
+        sp, shape=sp.shape[1:], axes=sp.axes[1:],
+        view=None if sp.view is None else sp.view[1:]), tree["units"])
     units = None
     for u in range(cfg.n_units):
         one = cast(init_params(unit_spec, gen))
@@ -3010,7 +3030,6 @@ def census_vs_dry_run(cfg, shape, tcfg, params, batch, label):
         fn.launches = 0
     card = Census(device="cuda")
     card.track(args)
-    gc.collect()             # garbage of earlier steps would be freed inside
     torch.cuda.synchronize()
     before = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
@@ -3112,6 +3131,213 @@ def dry_run_phase_15(label):
               f"smollm_360m in {time.perf_counter() - t0:.1f} s (meta, on "
               f"the host; computed on H100 constants, not measured):")
         print(roofline_report.table(roofline_report.load(out), md=True))
+    return total
+
+
+def mesh_rank(rank: int, world: int, out: str) -> int:
+    """Phase 16, one rank (a process of its own, on ``cuda:rank``): the
+    sharded step of full-width SmolLM-360M on make_host_mesh(1) for
+    P16_STEPS steps (B2 launches, collective calls, times, the first
+    step's peak memory), each step's params kept; then rank 0 runs the
+    one-process step on the same batches from the same seed and compares
+    after each step. Writes ``out/rank<r>.json``."""
+    import os
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_host_mesh, process_group
+    from repro_torch.models import parallel
+    from repro_torch.models.param import ShardingRules
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world),
+                      LOCAL_RANK=str(rank))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = configs.get("smollm_360m")
+    shards = TokenShards(vocab=cfg.vocab, seq_len=TRAIN_S, batch=TRAIN_B)
+    bf16 = TrainConfig(adamw=AdamWConfig(lr=3e-4, warmup_steps=10,
+                                         total_steps=P16_STEPS))
+    res = {"rank": rank, "world": world, "losses": [], "grad_norms": [],
+           "launches": [], "collectives": [], "ms": [], "worst": []}
+
+    with process_group("cuda", f"file://{out}/pg") as dev:
+        batches = [{k: torch.as_tensor(v, device=dev) for k, v in
+                    shards.batch_at(0, i).items()} for i in range(P16_STEPS)]
+        mesh = make_host_mesh(1, dev)
+        res["mesh"] = dict(zip(mesh.mesh_dim_names, mesh.shape))
+        step, _, _, init = make_train_step(cfg, mesh, ShardingRules(), bf16,
+                                           device=dev)
+        state = init(0)
+        torch.cuda.synchronize()
+        res["state_gb"] = torch.cuda.memory_allocated() / 1e9
+        torch.cuda.reset_peak_memory_stats()
+        kept = []
+        for batch in batches:
+            for fn in WRAPPERS.values():
+                fn.launches = 0
+            parallel.COLLECTIVES.clear()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = step(state, batch)
+            loss = float(m["loss"])
+            torch.cuda.synchronize()
+            res["ms"].append((time.perf_counter() - t0) * 1e3)
+            res["launches"].append({n: fn.launches
+                                    for n, fn in WRAPPERS.items()})
+            res["collectives"].append(dict(parallel.COLLECTIVES))
+            if not kept:
+                res["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+            res["losses"].append(loss)
+            res["grad_norms"].append(float(m["grad_norm"]))
+            kept.append(map_tree(torch.clone, state.params))
+        if rank == 0:                   # the one-process step, compared
+            step1, _, _, init1 = make_train_step(cfg, tcfg=bf16, device=dev)
+            one = init1(0)
+            for i, batch in enumerate(batches):
+                one, m1 = step1(one, batch)
+                got, want = tree_leaves(kept[i]), tree_leaves(one.params)
+                if world == 1 and i == P16_STEPS - 1:   # mu and nu (whole
+                    # on one rank) after the last step
+                    got += tree_leaves((state.opt.mu, state.opt.nu))
+                    want += tree_leaves((one.opt.mu, one.opt.nu))
+                res["worst"].append({
+                    "loss": (res["losses"][i], float(m1["loss"])),
+                    "grad_norm": (res["grad_norms"][i],
+                                  float(m1["grad_norm"])),
+                    "equal": bool(world == 1 and all(
+                        torch.equal(a, b) for a, b in zip(got, want))),
+                    "param_err": max((a.float() - b.float()).abs().max()
+                                     .item() for a, b in zip(got, want))})
+            del one
+        del state, kept
+        if world >= 2:
+            f32 = dataclasses.replace(bf16, act_dtype=torch.float32)
+
+            def f32_step(cfg, model, batch):
+                """One f32 step on make_host_mesh(model) against one
+                process's on rank 0; the B2 launches of the mesh's step."""
+                mesh = make_host_mesh(model, dev)
+                step, _, _, init = make_train_step(cfg, mesh, ShardingRules(),
+                                                   f32, device=dev)
+                state = init(0)
+                flash_attn.flash_attention_fwd.launches = 0
+                state, m = step(state, batch)
+                out = {"mesh": dict(zip(mesh.mesh_dim_names, mesh.shape)),
+                       "b2": flash_attn.flash_attention_fwd.launches}
+                place = parallel.placement(lm.abstract_params(cfg),
+                                           ShardingRules(), mesh)
+                whole = [parallel.gather_full(t, leaf, mesh) for t, leaf in
+                         zip(tree_leaves(state.params), tree_leaves(place))]
+                del state
+                if rank == 0:
+                    step1, _, _, init1 = make_train_step(cfg, tcfg=f32,
+                                                         device=dev)
+                    one, m1 = step1(init1(0), batch)
+                    out["loss"] = (float(m["loss"]), float(m1["loss"]))
+                    out["excess_over_rtol"] = max(
+                        ((a - b).abs() - P16_F32["rtol"] * b.abs()).max()
+                        .item() for a, b in zip(whole, tree_leaves(one.params)))
+                dist.barrier()
+                return out
+
+            # SmolLM with a model axis of 2 (its 15 heads replicate), then
+            # Llama-3-8B cut in depth with every card on the model axis:
+            # its heads, KV heads, MLP and vocab cut, B2 on local heads
+            res["f32"] = f32_step(cfg, 2, batches[0])
+            cfg8 = dataclasses.replace(configs.get("llama3_8b"),
+                                       n_layers=P16_LLAMA_LAYERS)
+            b8 = {k: torch.as_tensor(v, device=dev) for k, v in TokenShards(
+                vocab=cfg8.vocab, seq_len=TRAIN_S,
+                batch=P16_LLAMA_B).batch_at(0, 0).items()}
+            res["llama"] = f32_step(cfg8, world, b8)
+    with open(Path(out) / f"rank{rank}.json", "w") as f:
+        json.dump(res, f)
+    return 0
+
+
+def mesh_train_16(label):
+    """Phase 16: spawns min(cards, 4) ranks of :func:`mesh_rank` (this
+    script with ``--mesh-rank``), waits for them (a failed or stuck rank
+    fails the phase; every rank is stopped), and checks their records.
+    Returns rank 0's launches over the sharded steps."""
+    world = min(torch.cuda.device_count(), 4)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as out:
+        logs = [open(Path(out) / f"rank{r}.log", "w") for r in range(world)]
+        procs = [subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), "--mesh-rank",
+             str(r), str(world), out], stdout=logs[r],
+            stderr=subprocess.STDOUT) for r in range(world)]
+        try:
+            for p in procs:
+                p.wait(timeout=P16_TIMEOUT_S)
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+            for f in logs:
+                f.close()
+        for r, p in enumerate(procs):
+            log = (Path(out) / f"rank{r}.log").read_text()
+            check(p.returncode == 0, f"16: rank {r} exited {p.returncode}:\n"
+                  f"{log[-4000:]}")
+        recs = [json.loads((Path(out) / f"rank{r}.json").read_text())
+                for r in range(world)]
+    wall = time.perf_counter() - t0
+    r0 = recs[0]
+    for rec in recs:
+        for i, n in enumerate(rec["launches"]):
+            check(n["flash_attn_fwd"] == LM_B2_PER_STEP and
+                  all(c == 0 for k, c in n.items() if k != "flash_attn_fwd"),
+                  f"16: rank {rec['rank']} step {i + 1} launches {n}: want "
+                  f"{LM_B2_PER_STEP} B2, no other")
+        check(all(sum(c.values()) > 0 for c in rec["collectives"]),
+              f"16: rank {rec['rank']} ran no collective")
+        check(all(np.isfinite(rec["losses"])), f"16: losses {rec['losses']}")
+    for i, w in enumerate(r0["worst"]):
+        if world == 1:
+            check(w["equal"] and w["loss"][0] == w["loss"][1]
+                  and w["grad_norm"][0] == w["grad_norm"][1],
+                  f"16: (1, 1) step {i + 1} is not the one-process step bit "
+                  f"for bit: {w}")
+        else:
+            check(abs(w["loss"][0] - w["loss"][1])
+                  <= P16_BF16_LOSS_RTOL * abs(w["loss"][1]),
+                  f"16: ({world}, 1) step {i + 1}: {w}")
+    if world >= 2:
+        for key, b2 in (("f32", LM_B2_PER_STEP),
+                        ("llama", 2 * P16_LLAMA_LAYERS)):
+            f = r0[key]
+            check(abs(f["loss"][0] - f["loss"][1])
+                  <= P16_F32["loss_rtol"] * abs(f["loss"][1])
+                  and f["excess_over_rtol"] <= P16_F32["atol"]
+                  and all(rec[key]["b2"] == b2 for rec in recs),
+                  f"16: f32 {key} step on {f['mesh']}: {f}, B2 "
+                  f"{[rec[key]['b2'] for rec in recs]} (want {b2} a rank)")
+    calls = r0["collectives"][-1]
+    print(f"phase 16 on {label}: world {world}, mesh {r0['mesh']} "
+          f"(make_host_mesh(1)), full-width SmolLM-360M batch {TRAIN_B} seq "
+          f"{TRAIN_S} bf16 remat full AdamW, {P16_STEPS} steps, {wall:.1f} s "
+          f"with the ranks' start")
+    print(f"  losses {r0['losses']}; grad norms {r0['grad_norms']}; B2 "
+          f"{LM_B2_PER_STEP} a step on each rank, no other kernel")
+    print(f"  collective calls a step {sum(calls.values())} {calls}; ms a "
+          f"step (host clock, ends in a sync) "
+          f"{[round(t, 3) for t in r0['ms']]} (the first holds the first "
+          f"call's costs); peak memory a rank in step 1 "
+          f"{[round(rec['peak_gb'], 4) for rec in recs]} GB (its state "
+          f"before it {[round(rec['state_gb'], 4) for rec in recs]} GB)")
+    if world == 1:
+        print(f"  (1, 1) mesh == the one-process step bit for bit in loss, "
+              f"grad norm and params after each of {P16_STEPS} steps, and "
+              f"in mu and nu after the last")
+    else:
+        print(f"  ({world}, 1) vs one process: "
+              f"{[(w['loss'], w['param_err']) for w in r0['worst']]}; one "
+              f"f32 SmolLM step: {r0['f32']}; one f32 step of Llama-3-8B "
+              f"at published widths, reduced: n_layers 32 -> "
+              f"{P16_LLAMA_LAYERS}, batch {P16_LLAMA_B} x {TRAIN_S}: "
+              f"{r0['llama']}")
+    total = {n: sum(step[n] for step in r0["launches"]) for n in WRAPPERS}
     return total
 
 
@@ -3351,6 +3577,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_done(f"phase 15 (the dry run against the card) took "
                f"{time.perf_counter() - t15:.1f} s")
+    t16 = time.perf_counter()
+    paths["smollm_360m_mesh"] = mesh_train_16(smi)
+    phase_done(f"phase 16 (the train step on a mesh) took "
+               f"{time.perf_counter() - t16:.1f} s")
     print(f"launches on the main paths (B1: counted by its wrapper at each "
           f"launch; the device loop is eager, no graph): {paths}")
     launches = {n: sum(p.get(n, 0) for p in paths.values()) for n in WRAPPERS}
@@ -3393,4 +3623,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--mesh-rank"]:
+        if not torch.cuda.is_available():
+            sys.exit(1)
+        sys.exit(mesh_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4]))
     sys.exit(main())

@@ -7,12 +7,20 @@ optional gradient compression. A vision config's step gets a zero
 ``frontend_embed`` and an audio config's (Whisper) zero ``enc_frames``,
 (batch, frontend_len, d_model) bf16, as the reference's does. On the
 card unless ``--device cpu``.
-``--model-parallel`` other than 1 is refused: the reference's model
-sharding is not ported (one card).
+
+As the reference's, the step runs on :func:`repro_torch.launch.mesh.
+make_host_mesh` (``--model-parallel m``): a ``(world // m, m)`` mesh of
+the ranks ``torchrun`` starts (one card each, NCCL; gloo ranks under
+``--device cpu``), or of one rank under a plain ``python -m``. Every rank
+draws the same global batch and takes its rows. Only rank 0 prints and
+saves. A checkpoint holds the whole state, gathered from the ranks, in
+the one-process format, so it resumes on any mesh shape.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.train --arch smollm_360m \
       --smoke --steps 50 --batch 8 --seq 128 --ckpt-dir /tmp/ckpt
+  torchrun --nproc-per-node 2 -m repro_torch.launch.train --smoke \
+      --device cpu --model-parallel 2
 """
 from __future__ import annotations
 
@@ -21,19 +29,58 @@ import time
 
 import torch
 
+import torch.distributed as dist
+
 from repro_torch import ckpt as ckptlib
-from repro_torch import configs, resolve_device
+from repro_torch import configs
 from repro_torch.data.synthetic import TokenShards, prefetch
-from repro_torch.train.optimizer import AdamWConfig
+from repro_torch.launch.mesh import make_host_mesh, process_group
+from repro_torch.models import lm
+from repro_torch.models import parallel as par
+from repro_torch.models.param import ShardingRules, map_tree
+from repro_torch.train.optimizer import AdamWConfig, AdamWState
 from repro_torch.train.step import TrainConfig, TrainState, make_train_step
+from repro_torch.utils.treeutil import tree_leaves, tree_unflatten
 
 
-def _ckpt_tree(state: TrainState):
-    """The state as a checkpoint tree (no None leaf)."""
-    tree = {"params": state.params, "opt": tuple(state.opt)}
+def _whole_like(cfg, state: TrainState):
+    """Empty host tensors shaped like the whole checkpoint tree."""
+    abstract = lm.abstract_params(cfg)
+    f32 = lambda: map_tree(lambda s: torch.empty(s.shape), abstract)
+    tree = {"params": map_tree(lambda s: torch.empty(s.shape, dtype=s.dtype),
+                               abstract),
+            "opt": (torch.empty((), dtype=state.opt.step.dtype), f32(),
+                    f32())}
     if state.ef is not None:
-        tree["ef"] = state.ef
+        tree["ef"] = f32()
     return tree
+
+
+def gather_state(state: TrainState, place, mesh):
+    """The whole state on every rank, as one process holds it (the
+    checkpoint tree; mu and nu gathered over ``data`` too)."""
+    def whole(tree, zero):
+        return tree_unflatten(tree, [
+            par.gather_full(t, leaf, mesh, zero)
+            for t, leaf in zip(tree_leaves(tree), tree_leaves(place))])
+    tree = {"params": whole(state.params, False),
+            "opt": (state.opt.step, whole(state.opt.mu, True),
+                    whole(state.opt.nu, True))}
+    if state.ef is not None:
+        tree["ef"] = whole(state.ef, False)
+    return tree
+
+
+def shard_state(whole, place, mesh, device) -> TrainState:
+    """This rank's pieces of a whole checkpoint tree, on ``device``."""
+    def cut(tree, zero):
+        return map_tree(lambda t: t.to(device),
+                        par.shard_tree(tree, place, mesh, zero))
+    step, mu, nu = whole["opt"]
+    return TrainState(cut(whole["params"], False),
+                      AdamWState(step.to(device), cut(mu, True),
+                                 cut(nu, True)),
+                      cut(whole["ef"], False) if "ef" in whole else None)
 
 
 def main(argv=None):
@@ -53,33 +100,41 @@ def main(argv=None):
     ap.add_argument("--log-every", type=int, default=5)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
-                    help="cuda (hand-written kernels) or cpu (their plain "
-                    "PyTorch versions)")
+                    help="cuda (hand-written kernels, one card a rank) or "
+                    "cpu (their plain PyTorch versions, gloo ranks)")
+    ap.add_argument("--init-method", default=None,
+                    help="how the ranks meet (torch.distributed's "
+                    "init_method, e.g. file:///tmp/pg); env:// under torchrun")
     args = ap.parse_args(argv)
-    if args.model_parallel != 1:
-        raise ValueError("--model-parallel: model sharding is not ported "
-                         "(one card)")
+    with process_group(args.device, args.init_method) as device:
+        return _train(args, device)
 
-    device = resolve_device(args.device)
+
+def _train(args, device):
     cfg = configs.get_smoke(args.arch) if args.smoke else configs.get(args.arch)
+    mesh = make_host_mesh(args.model_parallel, device)
+    rules = ShardingRules()
     tcfg = TrainConfig(
         adamw=AdamWConfig(lr=args.lr, warmup_steps=10,
                           total_steps=max(args.steps, 1)),
         remat=args.remat, compression=args.compression)
+    lead = dist.get_rank() == 0
+    say = print if lead else (lambda *a, **k: None)
 
-    step, _, _, init_state = make_train_step(cfg, tcfg=tcfg, device=device)
+    step, _, _, init_state = make_train_step(cfg, mesh, rules, tcfg,
+                                             device=device)
     state = init_state(args.seed)
+    place = par.placement(lm.abstract_params(cfg), rules, mesh)
 
     start = 0
     if args.ckpt_dir:
         last = ckptlib.latest_step(args.ckpt_dir)
         if last is not None:
             tree, meta = ckptlib.restore(args.ckpt_dir, last,
-                                         _ckpt_tree(state))
-            state = TrainState(tree["params"], type(state.opt)(*tree["opt"]),
-                               tree.get("ef"))
+                                         _whole_like(cfg, state))
+            state = shard_state(tree, place, mesh, device)
             start = int(meta.get("step", last))
-            print(f"restored checkpoint step {last} (resuming at {start})")
+            say(f"restored checkpoint step {last} (resuming at {start})")
 
     shards = TokenShards(vocab=cfg.vocab, seq_len=args.seq, batch=args.batch,
                          seed=args.seed)
@@ -100,19 +155,22 @@ def main(argv=None):
         losses.append(float(metrics["loss"]))
         if (i + 1) % args.log_every == 0:
             dt = time.time() - t0
-            print(f"step {i+1:5d} loss {losses[-1]:.4f} "
-                  f"gnorm {float(metrics['grad_norm']):.3f} "
-                  f"lr {float(metrics['lr']):.2e} "
-                  f"({dt/args.log_every:.2f}s/step)")
+            say(f"step {i+1:5d} loss {losses[-1]:.4f} "
+                f"gnorm {float(metrics['grad_norm']):.3f} "
+                f"lr {float(metrics['lr']):.2e} "
+                f"({dt/args.log_every:.2f}s/step)")
             t0 = time.time()
         if args.ckpt_dir and (i + 1) % args.ckpt_every == 0:
-            ckptlib.save(args.ckpt_dir, i + 1, _ckpt_tree(state),
-                         meta={"step": i + 1, "arch": cfg.name})
+            whole = gather_state(state, place, mesh)
+            if lead:
+                ckptlib.save(args.ckpt_dir, i + 1, whole,
+                             meta={"step": i + 1, "arch": cfg.name})
+            del whole
 
     if losses:
-        print(f"final loss {losses[-1]:.4f} (first {losses[0]:.4f})")
+        say(f"final loss {losses[-1]:.4f} (first {losses[0]:.4f})")
     else:
-        print("no steps to run (checkpoint already at target step)")
+        say("no steps to run (checkpoint already at target step)")
     return losses
 
 

@@ -19,7 +19,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops
-from repro_torch.models.param import ParamSpec
+from repro_torch.models import parallel as par
+from repro_torch.models.param import ParamSpec, ShardingRules
 
 
 @dataclasses.dataclass(frozen=True)
@@ -27,10 +28,13 @@ class Ctx:
     """Per-call context threaded through blocks, with every field of the
     reference's ``Ctx`` and its defaults. ``mamba_chunk`` and
     ``mlstm_chunk`` set the scans' chunks (the mLSTM kernel takes at most
-    64 of it; the scans are exact for any chunk). Accepted and ignored:
+    64 of it; the scans are exact for any chunk). ``mesh`` (a ``(data,
+    model)`` ``DeviceMesh``) and ``rules`` place a train step's layers:
+    each rank holds the shard its placement spec gives
+    (:mod:`repro_torch.models.parallel`), attention runs B2 on the rank's
+    heads and the MLP on its slice of ``d_ff``. Accepted and ignored:
     ``use_pallas``, ``block_q`` and ``block_k`` (TPU kernel choices: the
     card always takes the Hopper kernels, the CPU their plain versions);
-    ``mesh`` and ``rules`` (sharding is not ported: one card);
     ``attn_compute_dtype`` (the port's attention math is f32 already).
     ``enc_out`` is Whisper's encoder output, the K/V source of
     cross-attention at train and prefill; ``moe_dispatch`` picks the MoE
@@ -38,7 +42,7 @@ class Ctx:
 
     cfg: Any
     mesh: Any = None
-    rules: Any = None
+    rules: ShardingRules = ShardingRules()
     mode: str = "train"                        # train | prefill | decode
     positions: Optional[torch.Tensor] = None   # (B,) decode positions
     rope: Optional[Tuple] = None               # precomputed (cos, sin)
@@ -58,7 +62,7 @@ class Ctx:
 # --------------------------------------------------------------------------
 
 def spec_rmsnorm(d: int) -> Dict:
-    return {"scale": ParamSpec((d,), "ones")}
+    return {"scale": ParamSpec((d,), ("embed",), "ones")}
 
 
 def rmsnorm(p, x, eps: float = 1e-5):
@@ -139,11 +143,12 @@ def spec_attention(cfg, cross: bool = False) -> Dict:
     """Self-attention's projections; cross-attention (``cross``) has the
     same four."""
     d, H, KV, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q, kv = (1, H, dh), (1, KV, dh)            # shards hold whole heads
     return {
-        "wq": ParamSpec((d, H * dh)),
-        "wk": ParamSpec((d, KV * dh)),
-        "wv": ParamSpec((d, KV * dh)),
-        "wo": ParamSpec((H * dh, d)),
+        "wq": ParamSpec((d, H * dh), ("embed", "heads"), view=(None, q)),
+        "wk": ParamSpec((d, KV * dh), ("embed", "kv_heads"), view=(None, kv)),
+        "wv": ParamSpec((d, KV * dh), ("embed", "kv_heads"), view=(None, kv)),
+        "wo": ParamSpec((H * dh, d), ("heads", "embed"), view=(q, None)),
     }
 
 
@@ -160,19 +165,32 @@ def apply_attention(p, x, ctx: Ctx, *, causal=True, window=None, cache=None,
     nothing. At prefill the new cache holds the sequence's (roped) K and
     V, or cross-attention's K/V of the encoder memory, (B, KV, S_kv, dh).
     RoPE applies to self-attention only, when ``use_rope`` and
-    ``ctx.rope`` is set.
+    ``ctx.rope`` is set. On a mesh whose model axis cuts the heads, the
+    rank runs its own q heads and the KV heads they read
+    (:func:`repro_torch.models.parallel.local_heads`) and the output is
+    summed over ``model``.
     """
     cfg = ctx.cfg
     H, KV, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     B, S, _ = x.shape
     dt = x.dtype
     decode = ctx.mode == "decode"
+    wk, wv = p["wk"], p["wv"]
+    heads = par.local_heads(ctx, H, KV)
+    if heads is not None:
+        if kv_input is not None and heads[0] != H:
+            raise NotImplementedError("cross-attention on a model axis")
+        H, KV, sel = heads
+        x = par.copy_to_model(x, ctx.mesh)
+        if sel is not None:
+            wk, wv = (par.take_kv_heads(w, sel, dh, ctx.mesh)
+                      for w in (wk, wv))
 
     q = (x @ p["wq"].to(dt)).reshape(B, S, H, dh)
     if not (is_cross and decode):
         src = x if kv_input is None else kv_input.to(dt)
-        k = (src @ p["wk"].to(dt)).reshape(B, src.shape[1], KV, dh)
-        v = (src @ p["wv"].to(dt)).reshape(B, src.shape[1], KV, dh)
+        k = (src @ wk.to(dt)).reshape(B, src.shape[1], KV, dh)
+        v = (src @ wv.to(dt)).reshape(B, src.shape[1], KV, dh)
     if use_rope and ctx.rope is not None and not is_cross:
         cos, sin = ctx.rope
         q = apply_rope(q, cos, sin)
@@ -199,8 +217,10 @@ def apply_attention(p, x, ctx: Ctx, *, causal=True, window=None, cache=None,
         o = ops.flash_attention(q.transpose(1, 2), kh, vh, causal=causal,
                                 window=window)
         new_cache = {"k": kh, "v": vh} if ctx.mode == "prefill" else None
-    y = o.transpose(1, 2).reshape(B, S, H * dh)
-    return y @ p["wo"].to(dt), new_cache
+    y = o.transpose(1, 2).reshape(B, S, H * dh) @ p["wo"].to(dt)
+    if heads is not None:
+        y = par.reduce_from_model(y, ctx.mesh)
+    return y, new_cache
 
 
 # --------------------------------------------------------------------------
@@ -209,19 +229,27 @@ def apply_attention(p, x, ctx: Ctx, *, causal=True, window=None, cache=None,
 
 def spec_mlp(cfg) -> Dict:
     d, f = cfg.d_model, cfg.d_ff
-    width = 2 * f if cfg.mlp_kind == "swiglu" else f
-    return {"wi": ParamSpec((d, width)), "wo": ParamSpec((f, d))}
+    wi = (ParamSpec((d, 2 * f), ("embed", "mlp"), view=(None, (2, f, 1)))
+          if cfg.mlp_kind == "swiglu" else ParamSpec((d, f), ("embed", "mlp")))
+    return {"wi": wi, "wo": ParamSpec((f, d), ("mlp", "embed"))}
 
 
 def apply_mlp(p, x, ctx: Ctx):
+    """The dense MLP; on a mesh whose model axis cuts ``d_ff``, the rank's
+    columns of ``wi`` (of the gate and of the up projection alike) and
+    rows of ``wo``, the output summed over ``model``."""
     dt = x.dtype
+    split = par.model_split(ctx, "mlp", ctx.cfg.d_ff)
+    if split is not None:
+        x = par.copy_to_model(x, ctx.mesh)
     h = x @ p["wi"].to(dt)
     if ctx.cfg.mlp_kind == "swiglu":
         gate, up = h.chunk(2, dim=-1)
         h = F.silu(gate.float()).to(dt) * up
     else:                             # jax.nn.gelu defaults to the tanh form
         h = F.gelu(h.float(), approximate="tanh").to(dt)
-    return h @ p["wo"].to(dt)
+    y = h @ p["wo"].to(dt)
+    return y if split is None else par.reduce_from_model(y, ctx.mesh)
 
 
 # --------------------------------------------------------------------------
@@ -231,9 +259,10 @@ def apply_mlp(p, x, ctx: Ctx):
 def spec_moe(cfg) -> Dict:
     d, f, E = cfg.d_model, cfg.d_ff, cfg.n_experts
     return {
-        "router": ParamSpec((d, E), scale=0.02),
-        "wi": ParamSpec((E, d, 2 * f)),
-        "wo": ParamSpec((E, f, d)),
+        "router": ParamSpec((d, E), ("embed", None), scale=0.02),
+        "wi": ParamSpec((E, d, 2 * f), ("experts", "embed", "mlp"),
+                        view=(None, None, (2, f, 1))),
+        "wo": ParamSpec((E, f, d), ("experts", "mlp", "embed")),
     }
 
 
@@ -321,14 +350,14 @@ def spec_mamba2(cfg) -> Dict:
     d = cfg.d_model
     di, H, _, N = mamba_dims(cfg)
     return {
-        "w_in": ParamSpec((d, 2 * di)),
-        "conv_w": ParamSpec((4, di), scale=0.5),
-        "w_bc": ParamSpec((di, 2 * N)),
-        "w_dt": ParamSpec((di, H), scale=0.02),
-        "dt_bias": ParamSpec((H,), "zeros"),
-        "a_log": ParamSpec((H,), "zeros"),
-        "d_skip": ParamSpec((H,), "ones"),
-        "w_out": ParamSpec((di, d)),
+        "w_in": ParamSpec((d, 2 * di), ("embed", "inner")),
+        "conv_w": ParamSpec((4, di), ("conv_k", "inner"), scale=0.5),
+        "w_bc": ParamSpec((di, 2 * N), ("inner", "state")),
+        "w_dt": ParamSpec((di, H), ("inner", None), scale=0.02),
+        "dt_bias": ParamSpec((H,), (None,), "zeros"),
+        "a_log": ParamSpec((H,), (None,), "zeros"),
+        "d_skip": ParamSpec((H,), (None,), "ones"),
+        "w_out": ParamSpec((di, d), ("inner", "embed")),
     }
 
 
@@ -390,10 +419,10 @@ def apply_mamba2(p, x, ctx: Ctx, cache=None):
 def spec_mlstm(cfg) -> Dict:
     d, di, H = cfg.d_model, cfg.d_inner, cfg.n_heads
     return {
-        "w_qkv": ParamSpec((d, 3 * di)),
-        "w_if": ParamSpec((d, 2 * H), scale=0.02),
-        "b_if": ParamSpec((2 * H,), "zeros"),
-        "w_out": ParamSpec((di, d)),
+        "w_qkv": ParamSpec((d, 3 * di), ("embed", "inner")),
+        "w_if": ParamSpec((d, 2 * H), ("embed", None), scale=0.02),
+        "b_if": ParamSpec((2 * H,), (None,), "zeros"),
+        "w_out": ParamSpec((di, d), ("inner", "embed")),
     }
 
 
@@ -429,9 +458,9 @@ def apply_mlstm(p, x, ctx: Ctx, cache=None):
 def spec_slstm(cfg) -> Dict:
     d = cfg.d_model
     return {
-        "w_x": ParamSpec((d, 4 * d)),
-        "w_h": ParamSpec((d, 4 * d)),
-        "bias": ParamSpec((4 * d,), "zeros"),
+        "w_x": ParamSpec((d, 4 * d), ("embed", "mlp")),
+        "w_h": ParamSpec((d, 4 * d), ("embed", "mlp")),
+        "bias": ParamSpec((4 * d,), ("mlp",), "zeros"),
     }
 
 

@@ -33,7 +33,12 @@ keeps only its matmul outputs (``"dots"``: a selective checkpoint
 policy, the counterpart of ``jax.checkpoint_policies.checkpoint_dots``);
 the three modes give the same gradients. Remat applies only when a
 parameter requires grad under grad mode. The reference's ``unroll`` (its
-``lax.scan`` unrolling) is accepted and ignored.
+``lax.scan`` unrolling) is accepted and ignored. With ``ctx.mesh`` (a
+train step on a ``(data, model)`` mesh, :mod:`repro_torch.models.
+parallel`) ``params`` hold this rank's shards: the embedding, the head
+and the loss run vocab-parallel where the vocab is cut, and ``loss``
+averages over the global batch; serving and split segments refuse a
+mesh.
 
 Entry points:
   init / abstract_params            parameter trees
@@ -56,6 +61,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from repro_torch.models import layers as L
+from repro_torch.models import parallel as par
 from repro_torch.models.param import ParamSpec, init_params, map_tree
 from repro_torch.utils.treeutil import tree_leaves
 
@@ -115,17 +121,18 @@ def _unit_spec(cfg) -> Dict:
 def abstract_params(cfg) -> Dict:
     _check_served(cfg)
     d, V = cfg.d_model, cfg.vocab
-    stack = lambda n: lambda s: ParamSpec((n,) + s.shape, s.init, s.scale,
-                                          s.dtype)
+    stack = lambda n: lambda s: ParamSpec(
+        (n,) + s.shape, ("unit",) + s.axes, s.init, s.scale, s.dtype,
+        None if s.view is None else (None,) + s.view)
     tree: Dict[str, Any] = {
-        "embed": ParamSpec((V, d), "embed"),
+        "embed": ParamSpec((V, d), ("vocab", "embed"), "embed"),
         "units": map_tree(stack(cfg.n_units), _unit_spec(cfg)),
         "final_norm": L.spec_rmsnorm(d),
     }
     if "shared_attn" in cfg.pattern_unit():
         tree["shared"] = _block_spec(cfg, "shared_attn")
     if not cfg.tie_embeddings:
-        tree["head"] = ParamSpec((d, V))
+        tree["head"] = ParamSpec((d, V), ("embed", "vocab"))
     if cfg.enc_dec:
         tree["enc_units"] = map_tree(
             stack(cfg.n_enc_layers),
@@ -216,8 +223,21 @@ def _apply_unit(cfg, unit_params, shared_params, x, ctx: L.Ctx, unit_cache):
     return x, new_caches, aux
 
 
-def _embed_tokens(params, tokens, act_dtype):
+def _embed_tokens(params, tokens, act_dtype, ctx=None):
+    """The token embeddings; vocab-parallel where ``ctx``'s mesh cuts the
+    vocab."""
+    split = None if ctx is None else par.model_split(ctx, "vocab",
+                                                     ctx.cfg.vocab)
+    if split is not None:
+        return par.embed_lookup(params["embed"], tokens, ctx.mesh,
+                                split).to(act_dtype)
     return params["embed"][tokens].to(act_dtype)
+
+
+def _refuse_mesh(ctx, what: str):
+    if ctx.mesh is not None:
+        raise NotImplementedError(f"{what} on a mesh: the port places the "
+                                  f"train step only")
 
 
 def _sinusoid_at(positions, d: int):
@@ -322,8 +342,12 @@ def forward(cfg, params, tokens, *, ctx: L.Ctx, frontend_embed=None,
     _check_served(cfg)
     if remat not in REMAT:
         raise ValueError(f"remat must be one of {REMAT}, got {remat!r}")
+    if ctx.mesh is not None:
+        if ctx.mode != "train":
+            _refuse_mesh(ctx, f"mode {ctx.mode!r}")
+        par.check_supported(cfg, ctx.mesh)
     B, S = tokens.shape
-    x = _embed_tokens(params, tokens, ctx.act_dtype)
+    x = _embed_tokens(params, tokens, ctx.act_dtype, ctx)
     n_front = 0
     if cfg.frontend == "vision" and frontend_embed is not None:
         n_front = cfg.frontend_len
@@ -350,17 +374,20 @@ def forward(cfg, params, tokens, *, ctx: L.Ctx, frontend_embed=None,
         if a is not None:
             aux = aux + a
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    logits = _head(cfg, params, x)
+    logits = _head(cfg, params, x, ctx)
     caches = _stack(per_unit) if ctx.mode == "prefill" else None
     return logits, aux, caches
 
 
-def _head(cfg, params, x):
+def _head(cfg, params, x, ctx=None):
     """f32 logits from act-dtype operands: the products of bf16 values are
     exact in f32, so this is the reference's bf16 dot with
     ``preferred_element_type=f32``. Rounding logits to bf16 would flip
-    greedy ties."""
+    greedy ties. Where ``ctx``'s mesh cuts the vocab, this rank's
+    columns of the logits."""
     w = params["embed"].T if cfg.tie_embeddings else params["head"]
+    if ctx is not None and par.model_split(ctx, "vocab", cfg.vocab):
+        x = par.copy_to_model(x, ctx.mesh)
     return x.float() @ w.to(x.dtype).float()
 
 
@@ -369,7 +396,9 @@ def loss(cfg, params, tokens, labels, *, ctx: L.Ctx, frontend_embed=None,
          unroll: int = 1):
     """Next-token CE (labels = targets aligned to positions; -1 = pad;
     a vision config's first ``frontend_len`` positions are left out).
-    Returns (ce + aux_weight * aux, {"ce", "aux", "ntok"})."""
+    Returns (ce + aux_weight * aux, {"ce", "aux", "ntok"}). On a mesh the
+    mean is over the global batch (the sum and the token count summed
+    over ``data``), and a cut vocab takes the vocab-parallel CE."""
     logits, aux, _ = forward(cfg, params, tokens, ctx=ctx,
                              frontend_embed=frontend_embed,
                              enc_frames=enc_frames, remat=remat,
@@ -379,11 +408,20 @@ def loss(cfg, params, tokens, labels, *, ctx: L.Ctx, frontend_embed=None,
         pos = torch.arange(labels.shape[1], device=labels.device)[None, :]
         mask = mask & (pos >= cfg.frontend_len)
     labels_c = labels.clamp(min=0).long()
-    lse = torch.logsumexp(logits, dim=-1)
-    ll = logits.gather(-1, labels_c[..., None])[..., 0]
+    split = par.model_split(ctx, "vocab", cfg.vocab)
+    if split is None:
+        lse = torch.logsumexp(logits, dim=-1)
+        ll = logits.gather(-1, labels_c[..., None])[..., 0]
+    else:
+        lse = par.vocab_logsumexp(logits, ctx.mesh)
+        ll = par.vocab_pick(logits, labels_c, split, ctx.mesh)
     ce = (lse - ll) * mask
-    n = mask.sum().clamp(min=1)
-    ce_mean = ce.sum() / n
+    total, n = ce.sum(), mask.sum()
+    if ctx.mesh is not None:
+        total = par.reduce_from_data(total, ctx.mesh)
+        n = par.all_reduce(n, ctx.mesh, "data")
+    n = n.clamp(min=1)
+    ce_mean = total / n
     return ce_mean + aux_weight * aux, {"ce": ce_mean, "aux": aux,
                                         "ntok": n}
 
@@ -487,6 +525,7 @@ def decode_step(cfg, params, cache, tokens, positions, *, ctx: L.Ctx,
     reads the cross cache as it is. ``unroll`` is accepted and ignored.
     """
     _check_served(cfg)
+    _refuse_mesh(ctx, "decode_step")
     x = _embed_tokens(params, tokens, ctx.act_dtype)
     if cfg.enc_dec:
         x = x + _sinusoid_at(positions, cfg.d_model)[:, None].to(
@@ -542,6 +581,7 @@ def decode_step_split(cfg, params_sat, params_gnd, cache, tokens, positions,
     and ignored. Enc-dec raises NotImplementedError (no split params).
     """
     _refuse_split_enc_dec(cfg)
+    _refuse_mesh(ctx, "decode_step_split")
     cut = _n_units(params_sat)
     x = _embed_tokens(params_sat, tokens, ctx.act_dtype)
     dctx = _decode_ctx(cfg, ctx, positions)
@@ -571,6 +611,7 @@ def forward_segment(cfg, params, x, lo: int, hi: int, *, ctx: L.Ctx,
     and with no ``ctx.enc_out`` each cross-attention reads the decoder's
     own states."""
     _check_served(cfg)
+    _refuse_mesh(ctx, "forward_segment")
     pat = cfg.pattern_unit()
     if lo == 0:
         if tokens is None:

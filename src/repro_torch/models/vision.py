@@ -34,13 +34,13 @@ from repro_torch.models.param import ParamSpec
 
 
 def _conv_spec(cin, cout, k):
-    return {"w": ParamSpec((k, k, cin, cout)),
-            "b": ParamSpec((cout,), "zeros")}
+    return {"w": ParamSpec((k, k, cin, cout), (None, None, None, "mlp")),
+            "b": ParamSpec((cout,), ("mlp",), "zeros")}
 
 
 def _gn_spec(c):
-    return {"scale": ParamSpec((c,), "ones"),
-            "bias": ParamSpec((c,), "zeros")}
+    return {"scale": ParamSpec((c,), ("mlp",), "ones"),
+            "bias": ParamSpec((c,), ("mlp",), "zeros")}
 
 
 def _same_pads(n: int, k: int, s: int):
@@ -168,8 +168,8 @@ def resnet18_abstract_params(n_classes: int = 1000) -> Dict:
         "s2b1": _basic_block_spec(64, 128), "s2b2": _basic_block_spec(128, 128),
         "s3b1": _basic_block_spec(128, 256), "s3b2": _basic_block_spec(256, 256),
         "s4b1": _basic_block_spec(256, 512), "s4b2": _basic_block_spec(512, 512),
-        "head": {"w": ParamSpec((512, n_classes)),
-                 "b": ParamSpec((n_classes,), "zeros")},
+        "head": {"w": ParamSpec((512, n_classes), ("embed", "vocab")),
+                 "b": ParamSpec((n_classes,), ("vocab",), "zeros")},
     }
 
 

@@ -18,6 +18,10 @@ them; callers that need the old values copy them first
 (:meth:`repro_torch.core.train_state.SLTrainState.apply_updates`). The
 step counters and the learning rate stay on the parameters' device, so
 an update never waits for the device.
+
+On a ``(data, model)`` mesh, :func:`zero_adamw_update` holds mu and nu
+as :func:`adamw_state_specs` says (ZeRO over ``data``, the reference's
+``zero_axis_for``) and gives the same arithmetic.
 """
 from __future__ import annotations
 
@@ -27,7 +31,8 @@ from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple, Union
 
 import torch
 
-from repro_torch.models.param import map_tree
+from repro_torch.models.param import (ParamSpec, ShardingRules, map_tree,
+                                      mesh_axes, spec_names)
 from repro_torch.utils.treeutil import tree_leaves, tree_unflatten
 
 
@@ -75,10 +80,13 @@ def clip_by_global_norm(grads, max_norm: float):
     """(grads scaled to a global norm of at most ``max_norm`` as f32
     leaves in a new tree, the global norm before clipping)."""
     gn = global_norm(grads)
-    scale = torch.clamp(max_norm / torch.clamp(gn, min=1e-9), max=1.0)
     scaled = torch._foreach_mul([g.float() for g in tree_leaves(grads)],
-                                scale)
+                                _clip_scale(gn, max_norm))
     return tree_unflatten(grads, scaled), gn
+
+
+def _clip_scale(gn, max_norm: float):
+    return torch.clamp(max_norm / torch.clamp(gn, min=1e-9), max=1.0)
 
 
 class AdamWState(NamedTuple):
@@ -96,11 +104,19 @@ def adamw_update(cfg: AdamWConfig, grads, state: AdamWState, params):
     """Updates ``params`` and ``state`` in place; returns
     (params, new_state, metrics)."""
     grads, gn = clip_by_global_norm(grads, cfg.grad_clip)
+    step, lr = _adamw_apply(cfg, tree_leaves(grads), state, tree_leaves(params))
+    return params, AdamWState(step, state.mu, state.nu), \
+        {"grad_norm": gn, "lr": lr}
+
+
+def _adamw_apply(cfg: AdamWConfig, g, state: AdamWState, p):
+    """AdamW's arithmetic on the leaves ``g`` (clipped f32 gradients) and
+    ``p`` (the parameters, or the slices of them this rank updates), and
+    on ``state``'s mu and nu, in place; returns (step, lr)."""
     step = state.step + 1
     lr = lr_at(cfg, step)
     b1, b2 = cfg.b1, cfg.b2
-    g, m, v = tree_leaves(grads), tree_leaves(state.mu), tree_leaves(state.nu)
-    p = tree_leaves(params)
+    m, v = tree_leaves(state.mu), tree_leaves(state.nu)
 
     torch._foreach_mul_(m, b1)
     torch._foreach_add_(m, torch._foreach_mul(g, 1 - b1))
@@ -116,6 +132,31 @@ def adamw_update(cfg: AdamWConfig, grads, state: AdamWState, params):
         torch._foreach_mul([t.float() for t in p], cfg.weight_decay))
     # in place, computed in f32 and stored in the parameter's dtype
     torch._foreach_sub_(p, torch._foreach_mul(delta, lr))
+    return step, lr
+
+
+def zero_adamw_update(cfg: AdamWConfig, grads, state: AdamWState, params,
+                      place, mesh):
+    """AdamW on a ``(data, model)`` mesh, with mu and nu held as their ZeRO
+    spec says (:func:`adamw_state_specs`).
+
+    ``grads`` are reduced over ``data`` already
+    (:func:`repro_torch.models.parallel.reduce_grads`): this rank's slice
+    of each ZeRO-cut leaf, the whole local gradient of the others. The
+    clip takes the global norm of the whole gradient
+    (:func:`repro_torch.models.parallel.global_norm`); each data rank
+    updates its slice of each parameter in place and the slices are
+    all-gathered over ``data``. The arithmetic is :func:`adamw_update`'s.
+    Returns (params, new_state, metrics)."""
+    from repro_torch.models import parallel as par
+
+    gn = par.global_norm(grads, place, mesh)
+    g = torch._foreach_mul([t.float() for t in tree_leaves(grads)],
+                           _clip_scale(gn, cfg.grad_clip))
+    p = [t if l.zdim is None else par.zero_slice(t, l.zdim, mesh)
+         for t, l in zip(tree_leaves(params), tree_leaves(place))]
+    step, lr = _adamw_apply(cfg, g, state, p)
+    par.gather_zero_slices(params, place, mesh)
     return params, AdamWState(step, state.mu, state.nu), \
         {"grad_norm": gn, "lr": lr}
 
@@ -212,3 +253,51 @@ def resolve_optimizer(spec: Union[str, Optimizer, None],
             f"unknown optimizer {spec!r}; expected one of "
             f"{sorted(_OPTIMIZER_FACTORIES)} or an Optimizer instance")
     return factory(**defaults)
+
+
+# --------------------------------------------------------------------------
+# ZeRO sharding of optimizer state (the reference's, spec for spec).
+# --------------------------------------------------------------------------
+
+def zero_axis_for(spec: ParamSpec, rules: ShardingRules, mesh,
+                  base: Optional[Tuple] = None) -> Tuple:
+    """The spec of the optimizer-state copy of ``spec``: the parameter's
+    spec (``base``; the reference's resolve by default) with ``rules.zero``
+    added on the largest dim that spec leaves unpartitioned and the
+    axis divides. Where none qualifies, or the zero axis is in use, the
+    state is held like the parameter (partitioning tiny norms costs more
+    in collectives than it saves)."""
+    if base is None:
+        base = rules.resolve(spec.axes, mesh, spec.shape)
+    sizes = mesh_axes(mesh)
+    zaxis = rules.zero
+    if isinstance(zaxis, str):
+        zaxis = (zaxis,)
+    zaxis = tuple(a for a in (zaxis or ()) if a in sizes)
+    if not zaxis:
+        return base
+    taken = set()
+    for e in base:
+        taken.update(spec_names(e))
+    if set(zaxis) & taken:
+        return base
+    extent = math.prod(sizes[a] for a in zaxis)
+    order = sorted(range(len(spec.shape)), key=lambda i: -spec.shape[i])
+    for i in order:
+        if (base[i] is None and spec.shape[i] % extent == 0
+                and spec.shape[i] >= extent):
+            parts = list(base)
+            parts[i] = zaxis[0] if len(zaxis) == 1 else zaxis
+            return tuple(parts)
+    return base
+
+
+def zero_partition_specs(abstract_tree, rules: ShardingRules, mesh):
+    """The spec tree of optimizer state (mu, nu). Its leaves are tuples:
+    walk the ParamSpec tree, not this one, with ``map_tree``."""
+    return map_tree(lambda s: zero_axis_for(s, rules, mesh), abstract_tree)
+
+
+def adamw_state_specs(abstract_tree, rules: ShardingRules, mesh):
+    zspec = zero_partition_specs(abstract_tree, rules, mesh)
+    return AdamWState(step=(), mu=zspec, nu=zspec)

@@ -2,23 +2,32 @@
 ``repro/train/step.py``).
 
 ``make_train_step`` returns the reference's 4-tuple, ``(train_step,
-None, None, init_state)``: ``train_step(state, batch) -> (state,
-metrics)`` takes loss and gradients (``lm.loss`` under the configured
-remat), optionally compresses the gradients with error feedback
-(``train.compression``: int8 runs on kernel B1 on the card), clips them
-to a global norm and applies AdamW. The state is updated in place, as
-the reference's jitted step donates it.
+state_specs, batch_specs, init_state)``: ``train_step(state, batch) ->
+(state, metrics)`` takes loss and gradients (``lm.loss`` under the
+configured remat), optionally compresses the gradients with error
+feedback (``train.compression``: int8 runs on kernel B1 on the card),
+clips them to a global norm and applies AdamW. The state is updated in
+place, as the reference's jitted step donates it.
 
-Not ported: pjit and buffer donation, ``ShardingRules``,
-``partition_specs``, ``adamw_state_specs``, ``zero_partition_specs``
-and ``cache_shardings`` (the reference's multi-device placement; the
-port trains on one card). The ``mesh``/``rules`` arguments and
-``TrainConfig``'s TPU fields (``use_pallas``, ``block_q``, ``block_k``,
-``scan_unroll``, ``attn_compute_dtype``) are accepted and ignored, as
-:class:`repro_torch.models.layers.Ctx` ignores them; ``moe_dispatch``
-picks the MoE layout (``global`` or ``batch_local``).
-``make_prefill_step`` and ``make_decode_step`` are thin wrappers over
-``lm.forward`` and ``lm.decode_step``.
+With a ``mesh`` (a ``(data, model)`` ``DeviceMesh``,
+:func:`repro_torch.launch.mesh.make_host_mesh`) the step is the
+reference's pjit placement run by hand: each rank holds its shard of the
+parameters (``ShardingRules``, :func:`~repro_torch.models.parallel.
+placement`) and its ZeRO slice of mu and nu
+(:func:`~repro_torch.train.optimizer.adamw_state_specs`), takes its data
+rank's rows of the global batch, runs the layers tensor-parallel
+(:mod:`repro_torch.models.parallel`), sums the gradients over ``data``
+and applies :func:`~repro_torch.train.optimizer.zero_adamw_update`. The
+result is one process's step, to rounding. Without a mesh the step runs
+on one device and the two specs are None.
+
+Not ported: ``cache_shardings`` and sharded serving (the serving steps
+take no mesh). ``TrainConfig``'s TPU fields (``use_pallas``,
+``block_q``, ``block_k``, ``scan_unroll``, ``attn_compute_dtype``) are
+accepted and ignored, as :class:`repro_torch.models.layers.Ctx` ignores
+them; ``moe_dispatch`` picks the MoE layout (``global`` or
+``batch_local``). ``make_prefill_step`` and ``make_decode_step`` are
+thin wrappers over ``lm.forward`` and ``lm.decode_step``.
 """
 from __future__ import annotations
 
@@ -29,11 +38,12 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.models import lm
+from repro_torch.models import parallel as par
 from repro_torch.models.layers import Ctx
-from repro_torch.models.param import map_tree
+from repro_torch.models.param import ShardingRules, map_tree
 from repro_torch.train import compression
 from repro_torch.train.optimizer import (AdamWConfig, AdamWState, adamw_init,
-                                         adamw_update)
+                                         adamw_update, zero_adamw_update)
 from repro_torch.utils.treeutil import tree_leaves, tree_unflatten
 
 
@@ -61,11 +71,16 @@ class TrainState(NamedTuple):
     ef: Any                              # error-feedback residuals or None
 
 
-def loss_and_grads(cfg, tcfg: TrainConfig, params, batch):
+def loss_and_grads(cfg, tcfg: TrainConfig, params, batch, mesh=None,
+                   rules: ShardingRules = ShardingRules()):
     """(loss, metrics {"ce", "aux", "ntok"}, grads shaped like ``params``)
     of ``lm.loss`` on ``batch`` (a dict of tensors on the params' device),
-    in the block context ``tcfg`` sets, as the reference's step builds it."""
-    ctx = Ctx(cfg=cfg, mode="train", act_dtype=tcfg.act_dtype,
+    in the block context ``tcfg`` sets, as the reference's step builds it.
+    With a ``mesh``: this rank's shards and rows, the loss over the
+    global batch, the gradients of this rank's part (not yet summed over
+    ``data``)."""
+    ctx = Ctx(cfg=cfg, mesh=mesh, rules=rules, mode="train",
+              act_dtype=tcfg.act_dtype,
               use_pallas=tcfg.use_pallas, block_q=tcfg.block_q,
               block_k=tcfg.block_k,
               attn_compute_dtype=tcfg.attn_compute_dtype,
@@ -85,15 +100,19 @@ def loss_and_grads(cfg, tcfg: TrainConfig, params, batch):
 
 def make_train_step(cfg, mesh=None, rules=None,
                     tcfg: TrainConfig = TrainConfig(), *, device="cuda"):
-    """Returns (train_step, None, None, init_state).
+    """Returns (train_step, state_specs, batch_specs, init_state).
 
     ``train_step(state, batch) -> (state, metrics)``; ``batch`` is a dict
     of ``tokens``/``labels`` (NumPy arrays or tensors). The state's
     tensors are updated in place and returned. ``init_state(seed)``
     draws the weights from ``torch.Generator(device).manual_seed(seed)``
-    (or from a given generator).
+    (or from a given generator). Without a mesh ``state_specs`` and
+    ``batch_specs`` are None; with one, see :func:`_make_sharded_step`.
     """
     dev = resolve_device(device)
+    if mesh is not None:
+        return _make_sharded_step(cfg, mesh, rules or ShardingRules(), tcfg,
+                                  dev)
 
     def train_step(state: TrainState, batch) -> Tuple[TrainState, Dict]:
         batch = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
@@ -122,6 +141,81 @@ def make_train_step(cfg, mesh=None, rules=None,
         return TrainState(params, adamw_init(params), ef)
 
     return train_step, None, None, init_state
+
+
+def _make_sharded_step(cfg, mesh, rules: ShardingRules, tcfg: TrainConfig,
+                       dev):
+    """The step on a ``(data, model)`` mesh (module docstring).
+
+    ``batch`` is the global batch, the same on every rank; each takes its
+    data rank's rows (``rules.batch`` resolved on the batch dim).
+    ``state_specs`` is a ``TrainState`` of the specs the state is held
+    by: each parameter's placement spec, mu's and nu's ZeRO specs, ``()``
+    for the step counter. ``batch_specs(batch)`` gives each input's.
+    ``init_state(seed)`` draws the whole model as one process does and
+    keeps this rank's shard, so the values equal one process's."""
+    par.check_supported(cfg, mesh, tcfg.compression)
+    abstract = lm.abstract_params(cfg)
+    place = par.placement(abstract, rules, mesh)
+    zspecs = map_tree(lambda leaf: leaf.spec if leaf.zdim is None else
+                      tuple("data" if d == leaf.zdim else e
+                            for d, e in enumerate(leaf.spec)), place)
+    specs = TrainState(params=map_tree(lambda leaf: leaf.spec, place),
+                       opt=AdamWState(step=(), mu=zspecs, nu=zspecs),
+                       ef=(map_tree(lambda leaf: leaf.spec, place)
+                           if tcfg.compression != "none" else None))
+
+    def batch_specs(batch) -> Dict:
+        return {k: rules.resolve(("batch",) + (None,) * (v.ndim - 1), mesh,
+                                 v.shape) for k, v in batch.items()}
+
+    def rows(t):
+        entry = rules.resolve(("batch",), mesh, t.shape[:1])[0]
+        if entry is None:
+            return t
+        if entry != "data":
+            raise NotImplementedError(f"batch on {entry!r}")
+        r, n = par.coords(mesh)["data"]
+        k = t.shape[0] // n
+        return t[r * k:(r + 1) * k]
+
+    def train_step(state: TrainState, batch) -> Tuple[TrainState, Dict]:
+        batch = {k: rows(torch.as_tensor(v, device=dev))
+                 for k, v in batch.items()}
+        lv, metrics, grads = loss_and_grads(cfg, tcfg, state.params, batch,
+                                            mesh, rules)
+        grads = par.reduce_grads(grads, place, mesh)
+        ef = state.ef
+        if tcfg.compression != "none":       # one rank (check_supported)
+            grads, ef_state, cm = compression.compress(
+                grads, compression.ErrorFeedbackState(ef),
+                scheme=tcfg.compression, topk_ratio=tcfg.topk_ratio)
+            ef = ef_state.residual
+            metrics.update(cm)
+        with torch.no_grad():
+            params, opt, om = zero_adamw_update(
+                tcfg.adamw, grads, state.opt, state.params, place, mesh)
+        metrics = dict(metrics)
+        metrics.update(om)
+        metrics["loss"] = lv
+        return TrainState(params, opt, ef), metrics
+
+    def init_state(seed=0) -> TrainState:
+        gen = (seed if isinstance(seed, torch.Generator)
+               else torch.Generator(device=dev).manual_seed(int(seed)))
+        params = par.shard_tree(lm.init(cfg, gen), place, mesh)
+        zeros = lambda: tree_unflatten(params, [
+            torch.zeros((t if leaf.zdim is None else
+                         par.zero_slice(t, leaf.zdim, mesh)).shape,
+                        dtype=torch.float32, device=dev)
+            for t, leaf in zip(tree_leaves(params), tree_leaves(place))])
+        ef = (compression.ef_init(params).residual
+              if tcfg.compression != "none" else None)
+        return TrainState(params, AdamWState(
+            torch.zeros((), dtype=torch.int32, device=dev), zeros(),
+            zeros()), ef)
+
+    return train_step, specs, batch_specs, init_state
 
 
 # --------------------------------------------------------------------------

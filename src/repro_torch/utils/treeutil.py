@@ -30,16 +30,18 @@ def tree_bytes(tree) -> int:
     return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
 
 
+def _build(node, it):
+    if isinstance(node, dict):
+        return {k: _build(node[k], it) for k in sorted(node)}
+    if isinstance(node, tuple):
+        return tuple(_build(t, it) for t in node)
+    return next(it)
+
+
 def tree_unflatten(like, leaves):
     """A tree shaped like ``like`` holding ``leaves`` (in the order of
-    :func:`tree_leaves`)."""
-    it = iter(leaves)
-
-    def build(node):
-        if isinstance(node, dict):
-            return {k: build(node[k]) for k in sorted(node)}
-        if isinstance(node, tuple):
-            return tuple(build(t) for t in node)
-        return next(it)
-
-    return build(like)
+    :func:`tree_leaves`). A module-level builder, not a recursive
+    closure: a closure that calls itself is a reference cycle, which
+    would keep ``leaves`` (a step's gradients) alive until the cyclic
+    GC runs."""
+    return _build(like, iter(leaves))

@@ -137,12 +137,6 @@ def test_launch_train_resumes_to_the_uninterrupted_losses(tmp_path, capsys):
     assert whole[-1] < whole[0]
 
 
-def test_launch_train_refuses_model_parallel():
-    with pytest.raises(ValueError, match="not ported"):
-        launch_train.main(["--smoke", "--device", "cpu",
-                           "--model-parallel", "2"])
-
-
 @pytest.mark.parametrize("cut", [None, 5])
 def test_vision_losses_vs_reference(cut):
     rng = np.random.default_rng(3)
