@@ -105,7 +105,9 @@ Phases, each fatal on failure:
      steps): finite, falling losses, exactly 64 flash-attention launches a
      step (32 forward, 32 remat recompute) and none of the other kernels,
      one f32 step's loss and gradients on the kernel path against the
-     plain path, steps/s, tokens/s and the card's share of a step; (b)
+     plain path, steps/s, tokens/s and the card's share of the step
+     ``launch.train`` runs (its one rank's (1, 1) mesh), timed in turns
+     with the mesh-less step; (b)
      SmolLM-360M split at unit 16 through the constellation ring (batch
      4, AdamW, int8 boundary, 4 passes): 2 quantizer and 32 attention
      launches a SL step with no copy, the boundary's bits, one SL step
@@ -141,11 +143,13 @@ Phases, each fatal on failure:
      full, AdamW) for 3 steps on make_host_mesh(1), exactly 64 B2
      launches a step on every rank; on one card the (1, 1) mesh equals
      the one-process step bit for bit in loss, grad norm and every
-     parameter after each step (on more, the (n, 1) mesh within bf16's
-     rounding, and one f32 step on make_host_mesh(2), and one of
-     Llama-3-8B cut to 2 layers with every card on the model axis, each
-     within 1e-5 in loss and 5e-4 in parameters); the mesh, collective
-     calls, ms and peak memory a step.
+     parameter after each step (on more, the (n, 1) mesh's loss within
+     bf16's rounding and its parameters within twice the steps' summed
+     learning rate, and one f32 step on the (n, 1) mesh, on
+     make_host_mesh(2), and of Llama-3-8B cut to 2 layers with every
+     card on the model axis, each within 1e-5 in loss, 5e-4 in
+     parameters and 1e-2 in the update's relative l2 error); the mesh,
+     collective calls, ms and peak memory a step.
 Phase 3 also holds B2's lse and its autograd Function at SmolLM's
 training shape (the plain backward timed beside SDPA's forward +
 backward), and the scans' Functions at full-width heads (gradients bit
@@ -200,7 +204,8 @@ from repro_torch.isl.__main__ import _smoke as isl_smoke  # noqa: E402
 from repro_torch.kernels import (_build, decode_attn, flash_attn,  # noqa: E402
                                  mamba_scan, mlstm_scan, ops, split_quant)
 from repro_torch.kernels.recompute import flat  # noqa: E402
-from repro_torch.models import lm  # noqa: E402
+from repro_torch.models import lm, parallel  # noqa: E402
+from repro_torch.models.param import ShardingRules  # noqa: E402
 from repro_torch.models.param import init_params, map_tree  # noqa: E402
 from repro_torch.obs.ring import EV_EXCHANGE, EV_SERVE  # noqa: E402
 from repro_torch.train.optimizer import resolve_optimizer  # noqa: E402
@@ -228,7 +233,8 @@ from repro_torch.launch import roofline as roofline_report  # noqa: E402
 from repro_torch.launch import train as launch_train  # noqa: E402
 from repro_torch.launch import (constellation_online_learning,  # noqa: E402
                                 isl_exchange, quickstart, serve_batched)
-from repro_torch.train.optimizer import AdamWConfig, adamw_init  # noqa: E402
+from repro_torch.train.optimizer import (AdamWConfig, adamw_init,  # noqa: E402
+                                         lr_at)
 from repro_torch.train.step import (TrainConfig, TrainState,  # noqa: E402
                                     loss_and_grads, make_decode_step,
                                     make_prefill_step, make_train_step)
@@ -346,6 +352,7 @@ LM_B2_PER_STEP = 64                 # 32 layers, forward and remat recompute
 LM_RING_PASSES, LM_RING_STEPS, LM_RING_BATCH, LM_CUT = 4, 4, 4, 16
 LM_B2_PER_SL_STEP = 32              # 16 layers a segment, forward only
 LM_STEP_LOSS_RTOL = 1e-5
+LM_TIMED = 3                        # 12a: steps a timed round
 # Phase 14: Whisper-small at its published widths (12 + 12 layers, d 768,
 # 12 MHA heads of 64, d_ff 3,072, vocab 51,865, 1,500 encoder frames).
 # 14a serves 8 requests of 1,500 seeded stub frames and 64-token prompts
@@ -377,8 +384,16 @@ P15_TIMED = {"train": 3, "prefill": 5, "decode": 10}
 # Phase 16: ranks of the sharded train step (one card each, at most 4),
 # each a process of this script (``--mesh-rank``), at phase 12a's shape.
 P16_STEPS, P16_TIMEOUT_S = 3, 600
+P16_ADAMW = AdamWConfig(lr=3e-4, warmup_steps=10, total_steps=P16_STEPS)
 P16_BF16_LOSS_RTOL = 2.0 ** -9     # a data axis sums bf16 partial grads
-P16_F32 = dict(loss_rtol=1e-5, atol=5e-4, rtol=5e-4)
+# an AdamW step moves an element by at most ~lr (|m_hat / sqrt(v_hat)|
+# <= 1.001 in the first steps), so two runs' params part by at most
+# twice the sum of the steps' lr where rounding flips a sign
+P16_BF16_PARAM_SLACK = 2 * 1.001
+# f32 steps: loss, params, and the update's relative l2 error against one
+# process's (a data rank's slice updated wrongly or not gathered moves it
+# by >= sqrt(1/4) on up to 4 ranks)
+P16_F32 = dict(loss_rtol=1e-5, atol=5e-4, rtol=5e-4, update_rel=1e-2)
 # With 2+ cards: Llama-3-8B at published widths, reduced: n_layers 32 -> 2,
 # batch 2 x 512, f32, one step with every card on the model axis
 P16_LLAMA_LAYERS, P16_LLAMA_B = 2, 2
@@ -2292,7 +2307,8 @@ def lm_train_12a(label):
     """Phase 12a: full-width SmolLM-360M through ``launch.train`` (batch
     8, seq 512, bf16, remat full, AdamW), exactly 64 B2 launches a step;
     one f32 step's loss and gradients, kernel path against plain path;
-    steps/s and the card's share of a step from one trace."""
+    steps/s and the card's share from one trace, of the step
+    ``launch.train`` runs (the (1, 1) mesh), beside the mesh-less step."""
     for fn in WRAPPERS.values():
         fn.launches = 0
     t0 = time.perf_counter()
@@ -2325,28 +2341,53 @@ def lm_train_12a(label):
         g_err = max(g_err, (a - b).abs().max().item())
     del gk, gp
 
-    # steps/s and the card's share, on the CLI's configuration
+    # steps/s and the card's share of the step the CLI runs (the (1, 1)
+    # mesh of launch.train's one rank), timed in turns with the mesh-less
+    # step on the same batch: one, CLI, CLI, one, LM_TIMED steps each
     tcfg = TrainConfig(adamw=AdamWConfig(lr=3e-4, warmup_steps=10,
                                          total_steps=LM_TRAIN_STEPS))
-    step, _, _, init_state = make_train_step(cfg, tcfg=tcfg, device="cuda")
-    state = init_state(0)
-    state, _ = step(state, batch)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(3):
+    with h100.process_group("cuda") as dev:
+        mesh = h100.make_host_mesh(1, dev)
+        cli, _, _, init_cli = make_train_step(cfg, mesh, ShardingRules(),
+                                              tcfg, device=dev)
+        one, _, _, init_one = make_train_step(cfg, tcfg=tcfg, device=dev)
+        states = {"cli": init_cli(0), "one": init_one(0)}
+        steps = {"cli": cli, "one": one}
+        timed = {"cli": [], "one": []}
+        for name in ("one", "cli", "cli", "one"):
+            step, state = steps[name], states[name]
+            if not timed[name]:                         # warm-up
+                state, m = step(state, batch)
+                float(m["loss"])
+            parallel.COLLECTIVES.clear()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(LM_TIMED):
+                state, m = step(state, batch)
+                float(m["loss"])
+            timed[name].append((time.perf_counter() - t0) / LM_TIMED * 1e3)
+            calls = sum(parallel.COLLECTIVES.values())
+            check((calls > 0) == (name == "cli"), f"12a: {calls} collective "
+                  f"calls in {LM_TIMED} {name} steps")
+            states[name] = state
+        del states["one"]
+        state, step = states.pop("cli"), cli
+        step_ms, one_ms = min(timed["cli"]), min(timed["one"])
+        host = []
+
+        def framed():
+            nonlocal state
+            t = time.perf_counter()
+            for _ in range(2):
+                state, m = step(state, batch)
+                float(m["loss"])
+            host.append((time.perf_counter() - t) * 1e3 / 2)
+        kern = cuda_events(framed, retake=False)
+        parallel.COLLECTIVES.clear()
         state, m = step(state, batch)
         float(m["loss"])
-    step_ms = (time.perf_counter() - t0) / 3 * 1e3
-    host = []
-
-    def framed():
-        nonlocal state
-        t = time.perf_counter()
-        for _ in range(2):
-            state, m = step(state, batch)
-            float(m["loss"])
-        host.append((time.perf_counter() - t) * 1e3 / 2)
-    kern = cuda_events(framed, retake=False)
+        calls = dict(parallel.COLLECTIVES)
+        del state
     busy = sum(getattr(e, "self_device_time_total", 0) for e in kern) / 2e3
     check(0 < busy <= host[-1], f"12a: card {busy} ms in {host[-1]} ms")
     tok = TRAIN_B * TRAIN_S
@@ -2357,8 +2398,15 @@ def lm_train_12a(label):
           f"init and the first step; losses {losses[0]:.4f} -> "
           f"{losses[-1]:.4f}; launches {launches} "
           f"({launches['flash_attn_fwd'] // LM_TRAIN_STEPS} B2 a step)")
-    print(f"  step: {step_ms:.2f} ms = {1e3 / step_ms:.3f} steps/s, "
-          f"{tok * 1e3 / step_ms:.0f} tokens/s (host clock, ends in a sync); "
+    print(f"  step (launch.train's: the (1, 1) mesh, {sum(calls.values())} "
+          f"collective calls {calls}): {step_ms:.2f} ms = "
+          f"{1e3 / step_ms:.3f} steps/s, {tok * 1e3 / step_ms:.0f} tokens/s "
+          f"(host clock, ends in a sync; the faster of 2 rounds of "
+          f"{LM_TIMED}); the mesh-less step in turns with it {one_ms:.2f} "
+          f"ms ({step_ms / one_ms - 1:+.1%}); rounds one, CLI, CLI, one: "
+          f"{timed['one'][0]:.2f}, {timed['cli'][0]:.2f}, "
+          f"{timed['cli'][1]:.2f}, {timed['one'][1]:.2f} ms [{label}]")
+    print(f"  "
           f"traced: host {host[-1]:.2f} ms, card {busy:.2f} ms a step, "
           f"device idle {1 - busy / host[-1]:.1%} (host and card from one "
           f"kernel-only trace; against the unprofiled step "
@@ -3152,8 +3200,7 @@ def mesh_rank(rank: int, world: int, out: str) -> int:
     torch.backends.cudnn.allow_tf32 = False
     cfg = configs.get("smollm_360m")
     shards = TokenShards(vocab=cfg.vocab, seq_len=TRAIN_S, batch=TRAIN_B)
-    bf16 = TrainConfig(adamw=AdamWConfig(lr=3e-4, warmup_steps=10,
-                                         total_steps=P16_STEPS))
+    bf16 = TrainConfig(adamw=P16_ADAMW)
     res = {"rank": rank, "world": world, "losses": [], "grad_norms": [],
            "launches": [], "collectives": [], "ms": [], "worst": []}
 
@@ -3229,17 +3276,30 @@ def mesh_rank(rank: int, world: int, out: str) -> int:
                 if rank == 0:
                     step1, _, _, init1 = make_train_step(cfg, tcfg=f32,
                                                          device=dev)
-                    one, m1 = step1(init1(0), batch)
+                    one = init1(0)
+                    before = [t.clone() for t in tree_leaves(one.params)]
+                    one, m1 = step1(one, batch)
+                    after = tree_leaves(one.params)
                     out["loss"] = (float(m["loss"]), float(m1["loss"]))
                     out["excess_over_rtol"] = max(
                         ((a - b).abs() - P16_F32["rtol"] * b.abs()).max()
-                        .item() for a, b in zip(whole, tree_leaves(one.params)))
+                        .item() for a, b in zip(whole, after))
+                    sq = lambda pairs: math.sqrt(sum(
+                        (a - b).double().square().sum().item()
+                        for a, b in pairs))
+                    out["update_rel_err"] = (sq(zip(whole, after))
+                                             / sq(zip(after, before)))
+                    del one, before, after
+                del whole
                 dist.barrier()
                 return out
 
-            # SmolLM with a model axis of 2 (its 15 heads replicate), then
-            # Llama-3-8B cut in depth with every card on the model axis:
-            # its heads, KV heads, MLP and vocab cut, B2 on local heads
+            # SmolLM with every card on the data axis (ZeRO: gradients
+            # reduce-scattered, slices all-gathered), then with a model
+            # axis of 2 (its 15 heads replicate), then Llama-3-8B cut in
+            # depth with every card on the model axis: its heads, KV
+            # heads, MLP and vocab cut, B2 on local heads
+            res["f32_data"] = f32_step(cfg, 1, batches[0])
             res["f32"] = f32_step(cfg, 2, batches[0])
             cfg8 = dataclasses.replace(configs.get("llama3_8b"),
                                        n_layers=P16_LLAMA_LAYERS)
@@ -3300,16 +3360,22 @@ def mesh_train_16(label):
                   f"16: (1, 1) step {i + 1} is not the one-process step bit "
                   f"for bit: {w}")
         else:
+            bound = P16_BF16_PARAM_SLACK * sum(
+                float(lr_at(P16_ADAMW, t)) for t in range(1, i + 2))
             check(abs(w["loss"][0] - w["loss"][1])
-                  <= P16_BF16_LOSS_RTOL * abs(w["loss"][1]),
-                  f"16: ({world}, 1) step {i + 1}: {w}")
+                  <= P16_BF16_LOSS_RTOL * abs(w["loss"][1])
+                  and w["param_err"] <= bound,
+                  f"16: ({world}, 1) step {i + 1}: {w}, params within "
+                  f"{bound:.3e}?")
     if world >= 2:
-        for key, b2 in (("f32", LM_B2_PER_STEP),
+        for key, b2 in (("f32_data", LM_B2_PER_STEP),
+                        ("f32", LM_B2_PER_STEP),
                         ("llama", 2 * P16_LLAMA_LAYERS)):
             f = r0[key]
             check(abs(f["loss"][0] - f["loss"][1])
                   <= P16_F32["loss_rtol"] * abs(f["loss"][1])
                   and f["excess_over_rtol"] <= P16_F32["atol"]
+                  and f["update_rel_err"] <= P16_F32["update_rel"]
                   and all(rec[key]["b2"] == b2 for rec in recs),
                   f"16: f32 {key} step on {f['mesh']}: {f}, B2 "
                   f"{[rec[key]['b2'] for rec in recs]} (want {b2} a rank)")
@@ -3333,7 +3399,8 @@ def mesh_train_16(label):
     else:
         print(f"  ({world}, 1) vs one process: "
               f"{[(w['loss'], w['param_err']) for w in r0['worst']]}; one "
-              f"f32 SmolLM step: {r0['f32']}; one f32 step of Llama-3-8B "
+              f"f32 SmolLM step: {r0['f32_data']} and {r0['f32']}; one f32 "
+              f"step of Llama-3-8B "
               f"at published widths, reduced: n_layers 32 -> "
               f"{P16_LLAMA_LAYERS}, batch {P16_LLAMA_B} x {TRAIN_S}: "
               f"{r0['llama']}")

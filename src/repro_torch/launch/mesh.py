@@ -51,6 +51,21 @@ def make_host_mesh(model: int = 1, device="cpu"):
                             mesh_dim_names=("data", "model"))
 
 
+def rank_card(device) -> torch.device:
+    """This rank's card for a CUDA ``device``: ``cuda:LOCAL_RANK`` when
+    the ranks are described (``WORLD_SIZE`` set, as ``torchrun`` sets
+    it), where an index in ``device`` that names another card raises;
+    else the card ``device`` names (``cuda`` is ``cuda:0``)."""
+    dev = torch.device(device)
+    if "WORLD_SIZE" not in os.environ:
+        return torch.device("cuda", dev.index or 0)
+    local = int(os.environ.get("LOCAL_RANK", os.environ.get("RANK", 0)))
+    if dev.index is not None and dev.index != local:
+        raise ValueError(f"device {dev} on the rank of LOCAL_RANK {local}: "
+                         f"each rank takes cuda:LOCAL_RANK")
+    return torch.device("cuda", local)
+
+
 @contextlib.contextmanager
 def process_group(device="cuda", init_method=None):
     """The default process group for one run, and this rank's device.
@@ -58,7 +73,7 @@ def process_group(device="cuda", init_method=None):
     Under ``torchrun`` (``RANK`` and ``WORLD_SIZE`` set) the ranks join
     by ``init_method`` (``env://`` by default); otherwise this process is
     one rank of one, joined through an in-memory store. NCCL serves
-    ``cuda`` (rank ``r`` on ``cuda:LOCAL_RANK``), gloo the CPU. A rank
+    ``cuda`` (the card :func:`rank_card` picks), gloo the CPU. A rank
     that waits on a collective longer than :data:`TIMEOUT_S` raises, so
     when one rank dies the others stop. A group opened here is destroyed
     on exit; one the caller opened is used as it is."""
@@ -67,9 +82,8 @@ def process_group(device="cuda", init_method=None):
         if not torch.cuda.is_available():
             raise RuntimeError("process_group: a cuda run needs a card; pass "
                                "device='cpu' to run on gloo ranks")
-        local = int(os.environ.get("LOCAL_RANK", os.environ.get("RANK", 0)))
-        torch.cuda.set_device(local)
-        dev = torch.device("cuda", local)
+        dev = rank_card(device)
+        torch.cuda.set_device(dev)
     else:
         dev = torch.device("cpu")
     if dist.is_initialized():

@@ -102,11 +102,8 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda",
                     help="cuda (hand-written kernels, one card a rank) or "
                     "cpu (their plain PyTorch versions, gloo ranks)")
-    ap.add_argument("--init-method", default=None,
-                    help="how the ranks meet (torch.distributed's "
-                    "init_method, e.g. file:///tmp/pg); env:// under torchrun")
     args = ap.parse_args(argv)
-    with process_group(args.device, args.init_method) as device:
+    with process_group(args.device) as device:
         return _train(args, device)
 
 

@@ -22,8 +22,12 @@ train step reduces the gradients over ``data``:
 
 A dim whose mesh extent does not divide its blocks replicates (SmolLM-
 360M's 15 heads on 2 ranks, Granite's 49,155-row vocab): those layers
-run whole on every model rank with no collective. A ``(1, 1)`` mesh runs
-the same code, with groups of one. Every collective goes through
+run whole on every model rank with no collective. So do all layers on a
+model axis of one rank, which cuts nothing; and a data axis of one
+cuts no optimizer state (ZeRO's slice would be the whole shard, reached
+through copies). A ``(1, 1)`` mesh runs the sharded step all the same,
+with groups of one: the loss and the gradients summed over ``data``, the
+global norm over the world. Every collective goes through
 :func:`_collective`, which counts it in :data:`COLLECTIVES`.
 """
 from __future__ import annotations
@@ -114,9 +118,11 @@ def reduce_from_data(x, mesh):
 
 def model_split(ctx, axis: str, blocks: int) -> Optional[Tuple[int, int]]:
     """(this rank's index, the model axis size) when the logical ``axis``
-    of ``blocks`` whole blocks is sharded over ``model`` under
-    ``ctx.rules``; None when it replicates or there is no mesh."""
-    if ctx.mesh is None:
+    of ``blocks`` whole blocks is cut over ``model`` under ``ctx.rules``;
+    None when it replicates, when the model axis has one rank (it cuts
+    nothing, so the layer runs whole and needs no collective), or when
+    there is no mesh."""
+    if ctx.mesh is None or mesh_axes(ctx.mesh).get("model", 1) == 1:
         return None
     entry = ctx.rules.resolve((axis,), ctx.mesh, (blocks,))[0]
     if entry is None:
@@ -242,11 +248,14 @@ def vocab_pick(logits, labels, split, mesh):
 @dataclasses.dataclass(frozen=True)
 class Leaf:
     """Where one parameter lives: its placement spec (entries None or
-    ``"model"``), its ``ParamSpec.view``, and the dim its optimizer state
-    is cut over ``data`` (ZeRO), or None where the state replicates."""
+    ``"model"``), its ``ParamSpec.view``, the spec of its optimizer state
+    (``zspec``: the placement with the ZeRO axis added), and the dim that
+    state is cut over ``data``, or None where it is held whole (no ZeRO
+    axis, or a data axis of one rank)."""
 
     spec: Tuple
     view: Optional[Tuple]
+    zspec: Tuple
     zdim: Optional[int]
 
     @property
@@ -260,9 +269,11 @@ def placement(abstract, rules, mesh):
     (``ParamSpec.blocks``): it differs from the reference's
     ``partition_specs`` only where that cuts a block (SmolLM-360M's 960
     query columns split in two cut its 15 heads, which a head-parallel
-    step cannot run, so they replicate). The ZeRO dim is
-    :func:`repro_torch.train.optimizer.zero_axis_for`'s, taken on it."""
+    step cannot run, so they replicate). The ZeRO spec is
+    :func:`repro_torch.train.optimizer.zero_axis_for`'s, taken on it; its
+    dim is cut only where the data axis has more than one rank."""
     from repro_torch.train.optimizer import zero_axis_for
+    data = mesh_axes(mesh).get("data", 1)
 
     def leaf(s):
         base = rules.resolve(s.axes, mesh, s.blocks)
@@ -275,7 +286,8 @@ def placement(abstract, rules, mesh):
             raise NotImplementedError(f"ZeRO over {zspec[zdims[0]]}: the "
                                       f"port cuts optimizer state over "
                                       f"'data'")
-        return Leaf(base, s.view, zdims[0] if zdims else None)
+        return Leaf(base, s.view, zspec,
+                    zdims[0] if zdims and data > 1 else None)
 
     return map_tree(leaf, abstract)
 

@@ -157,9 +157,7 @@ def _make_sharded_step(cfg, mesh, rules: ShardingRules, tcfg: TrainConfig,
     par.check_supported(cfg, mesh, tcfg.compression)
     abstract = lm.abstract_params(cfg)
     place = par.placement(abstract, rules, mesh)
-    zspecs = map_tree(lambda leaf: leaf.spec if leaf.zdim is None else
-                      tuple("data" if d == leaf.zdim else e
-                            for d, e in enumerate(leaf.spec)), place)
+    zspecs = map_tree(lambda leaf: leaf.zspec, place)
     specs = TrainState(params=map_tree(lambda leaf: leaf.spec, place),
                        opt=AdamWState(step=(), mu=zspecs, nu=zspecs),
                        ef=(map_tree(lambda leaf: leaf.spec, place)

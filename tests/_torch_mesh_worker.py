@@ -11,8 +11,9 @@ runs each JOB in turn in one gloo process group:
                      collective calls and the whole params gathered from
                      the ranks;
   launch:NAME:ARGS   ``launch.train.main`` on ARGS (split at spaces),
-                     which joins the ranks itself (``--init-method``);
-                     rank 0 writes its losses to OUT/launch_<NAME>.pt.
+                     in the group this job opens (it takes a group its
+                     caller opened as it is); rank 0 writes its losses
+                     to OUT/launch_<NAME>.pt.
 
 Each job's group meets at its own file, INIT with the job's index added.
 
@@ -101,13 +102,13 @@ def main(argv):
     for i, job in enumerate(argv[4:]):
         kind, arg, rest = job.split(":", 2)
         meet = f"{init}_{i}"            # a fresh rendezvous file a group
-        if kind == "steps":
-            with process_group("cpu", meet):
+        with process_group("cpu", meet):
+            if kind == "steps":
                 run_steps(out, int(arg), rest.split(","))
-        else:
-            losses = launch_train.main(rest.split() + ["--init-method", meet])
-            if rank == "0":
-                torch.save(losses, os.path.join(out, f"launch_{arg}.pt"))
+            else:
+                losses = launch_train.main(rest.split())
+                if rank == "0":
+                    torch.save(losses, os.path.join(out, f"launch_{arg}.pt"))
 
 
 if __name__ == "__main__":

@@ -161,3 +161,42 @@ def test_compression_refused_on_more_than_one_rank():
         make_train_step(configs.get_smoke("smollm_360m"),
                         {"data": 2, "model": 1}, ShardingRules(),
                         TrainConfig(compression="int8"), device="cpu")
+
+
+@pytest.mark.parametrize("data,cut", [(1, False), (2, True)])
+def test_zero_cuts_the_state_only_over_a_data_axis_of_several(data, cut):
+    """The state keeps the reference's ZeRO spec, but a data axis of one
+    rank cuts nothing: no dim to slice, reduce-scatter or all-gather."""
+    cfg = configs.get_smoke("smollm_360m")
+    abstract = lm.abstract_params(cfg)
+    mesh = {"data": data, "model": 1}
+    place = parallel.placement(abstract, ShardingRules(), mesh)
+    held = _port_specs(place, abstract)
+    want = _port_specs(optimizer.zero_partition_specs(
+        abstract, ShardingRules(), mesh), abstract)
+    assert held.keys() == want.keys()
+    assert any("data" in z for z in want.values())
+    for name, z in want.items():
+        assert held[name].zspec == z, name
+        assert (held[name].zdim is not None) == (cut and "data" in z), name
+
+
+@pytest.mark.parametrize("env,device,want", [
+    ({}, "cuda", "cuda:0"),
+    ({}, "cuda:1", "cuda:1"),
+    ({"WORLD_SIZE": "2", "RANK": "1", "LOCAL_RANK": "1"}, "cuda", "cuda:1"),
+    ({"WORLD_SIZE": "2", "RANK": "1", "LOCAL_RANK": "1"}, "cuda:0", None),
+])
+def test_a_rank_takes_the_card_it_is_given(monkeypatch, env, device, want):
+    """One process runs on the card its device names; a rank of several
+    on cuda:LOCAL_RANK, and a device naming another card is refused."""
+    from repro_torch.launch.mesh import rank_card
+    for k in ("WORLD_SIZE", "RANK", "LOCAL_RANK"):
+        monkeypatch.delenv(k, raising=False)
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    if want is None:
+        with pytest.raises(ValueError, match="LOCAL_RANK"):
+            rank_card(device)
+    else:
+        assert rank_card(device) == torch.device(want)
